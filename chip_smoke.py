@@ -15,15 +15,23 @@ script exits non-zero without a result line):
      a seeded enwik-like corpus plus one deep-code block) and require
      byte equality of the valid bytes;
   4. the slice: ``compress`` -> ``decompress`` of the 64 MiB input on
-     ``cuda`` must round-trip, with every kernel's launch count > 0;
-     then compress / decompress GB/s for the kernel path and for the
-     plain path (each kernel wrapper swapped for its plain version);
-  5. wire parity: the frames of the golden inputs must hash to the
+     ``cuda`` must round-trip, with the launch count of each of its
+     kernels > 0; then compress / decompress GB/s for the kernel path
+     and for the plain path (each kernel wrapper swapped for its plain
+     version);
+  5. the sharded pipeline in a one-rank NCCL group: ``compress_sharded``
+     of the 64 MiB input, with per-block and with shared tables, must
+     give ``compress``'s frame on ``cuda`` and ``decompress_sharded``
+     must round-trip, with the launch count of each of its kernels > 0;
+     then its GB/s and the time of its collectives; the group is
+     destroyed;
+  6. wire parity: the frames of the golden inputs must hash to the
      SHA-256 recorded from the JAX package, and decode back.
 
 The line before the last is a JSON object of the kernels (name, route,
-source, the TPU kernel it replaces, launches in the phase-4 run, max
-abs error against the plain version, ms per call, plain ms per call);
+source, the TPU kernel it replaces, launches in the runs of phases 4
+and 5, each counted from 0, max abs error against the plain version,
+ms per call, plain ms per call);
 the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when no CUDA device is available or when the
 package is not beside this script.
@@ -33,6 +41,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import socket
 import subprocess
 import sys
 import time
@@ -55,7 +64,13 @@ KERNELS = [
     ("huffman_decode", "decode", "decode_chunks", "decode_chunks_ref",
      "data_compression_tpu_torch/csrc/huffman_decode.cu",
      "data_compression_tpu/ops/pallas/decode_kernel.py:547"),
+    ("huffman_encode_rows", "encode", "encode_chunk_rows", "encode_chunk_rows_ref",
+     "data_compression_tpu_torch/csrc/huffman_encode.cu",
+     "data_compression_tpu/ops/pallas/encode_kernel.py:433"),
 ]
+# the kernels each path runs: the single-device slice and the sharded pipeline
+SLICE_KERNELS = ("huffman_encode", "compact", "huffman_decode")
+SHARDED_KERNELS = ("huffman_encode_rows", "huffman_decode")
 
 
 def log(msg: str) -> None:
@@ -121,6 +136,87 @@ def plain_kernels(modules):
     finally:
         for mod, wrapper, fn in saved:
             setattr(mod, wrapper, fn)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_phase(data: bytes, blob: bytes, card: str, count_launches) -> dict:
+    """compress_sharded / decompress_sharded in a one-rank NCCL group on
+    cuda:0, per-block and shared tables; -> launches of the path's
+    kernels, summed over the two checked runs."""
+    import torch
+    import torch.distributed as dist
+
+    from data_compression_tpu_torch import CodecConfig, compress
+    from data_compression_tpu_torch.config import max_chunk_bytes
+    from data_compression_tpu_torch.parallel import (
+        compress_sharded, decompress_sharded, make_mesh, multihost,
+    )
+    from data_compression_tpu_torch.parallel import pipeline
+
+    dev = torch.device("cuda", 0)
+    multihost.initialize("nccl", f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+                         device=dev)
+    try:
+        mesh = make_mesh(dev)
+        total = {}
+        for shared in (False, True):
+            cfg = CodecConfig(shared_table=shared)
+            want = blob if not shared else compress(data, cfg, device="cuda")
+            label = "shared table" if shared else "per-block tables"
+
+            def run():
+                f = compress_sharded(data, cfg, mesh)
+                return f, decompress_sharded(f, None, mesh)
+
+            (frame, back), counts = count_launches(SHARDED_KERNELS, run)
+            if frame != want:
+                raise AssertionError(f"sharded frame ({label}) differs from compress on cuda")
+            if back != data:
+                raise AssertionError(f"sharded round trip ({label}) is not exact")
+            for name, n in counts.items():
+                total[name] = total.get(name, 0) + n
+            best = {}
+            for _ in range(3):
+                f, ev_c, wall_c = timed(lambda: compress_sharded(data, cfg, mesh))
+                r, ev_d, wall_d = timed(lambda: decompress_sharded(f, None, mesh))
+                if f != want or r != data:
+                    raise AssertionError(f"sharded output ({label}) differs between runs")
+                for k, v in (("compress_event", ev_c), ("compress_wall", wall_c),
+                             ("decompress_event", ev_d), ("decompress_wall", wall_d)):
+                    best[k] = min(best.get(k, float("inf")), v)
+            gbps = {k: len(data) / (v * 1e-3) / 1e9 for k, v in best.items()}
+            log(f"sharded ({label}, 1 NCCL rank): frame == compress on cuda, round trip "
+                f"exact, launches {counts}; compress {gbps['compress_event']:.4f} GB/s "
+                f"(events) {gbps['compress_wall']:.4f} GB/s (wall); decompress "
+                f"{gbps['decompress_event']:.4f} GB/s (events) "
+                f"{gbps['decompress_wall']:.4f} GB/s (wall); best of 3, 64 MiB; card {card}")
+
+        # the collectives of the path at its 64 MiB shapes (one rank)
+        nblk = -(-len(data) // cfg.block_size)
+        ncb = cfg.block_size // cfg.chunk_syms
+        rows = torch.empty((nblk * ncb, max_chunk_bytes(cfg.chunk_syms, 2)),
+                           dtype=torch.uint8, device=dev)
+        digits = torch.empty((nblk * ncb,), dtype=torch.int32, device=dev)
+        hists = torch.empty((nblk, 256), dtype=torch.int64, device=dev)
+        syms = torch.empty((nblk, cfg.block_size), dtype=torch.uint8, device=dev)
+        hist_sum = torch.empty((256,), dtype=torch.int64, device=dev)
+        coll = {
+            "all_gather rows": cuda_ms(lambda: pipeline._all_gather(rows, mesh), 10),
+            "all_gather digits": cuda_ms(lambda: pipeline._all_gather(digits, mesh), 10),
+            "all_gather hists": cuda_ms(lambda: pipeline._all_gather(hists, mesh), 10),
+            "all_gather symbols": cuda_ms(lambda: pipeline._all_gather(syms, mesh), 10),
+            "all_reduce hist": cuda_ms(lambda: dist.all_reduce(hist_sum), 10),
+        }
+        log("sharded collectives (1 NCCL rank, ms per call, CUDA events): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in coll.items()) + f"; card {card}")
+        return total
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> int:
@@ -215,24 +311,55 @@ def main() -> int:
         plain_ms=cuda_ms(lambda: dec.decode_chunks_ref(**args), 2),
     )
     del out, out_r, args
+
+    # the rows kernel; chunk 0 of the deep-code block is rewritten to its
+    # table's 15-digit symbols so that its row fills all max_chunk_bytes
+    deep = torch.nonzero(((dense[-1] >> 15) & 0xF) == 15).flatten().to(torch.uint8)
+    rows_in = dev_blocks.clone()
+    rows_in[-1, :C] = deep[torch.arange(C, device=dev) % deep.numel()]
+    rows, digits = enc.encode_chunk_rows(rows_in, dev_lens, dense, C)
+    rows_r, digits_r = enc.encode_chunk_rows_ref(rows_in, dev_lens, dense, C)
+    torch.cuda.synchronize()
+    if not torch.equal(digits, digits_r):
+        raise AssertionError("encode rows: digit counts differ from the plain version")
+    if int(digits.max()) != 15 * C:
+        raise AssertionError("encode rows: no chunk filled its row")
+    valid = torch.arange(rows.shape[1], device=dev)[None, :] < ((digits[:, None].long() + 7) // 8)
+    results["huffman_encode_rows"] = dict(
+        max_abs_err=max_abs_err(rows, rows_r, valid),
+        ms=cuda_ms(lambda: enc.encode_chunk_rows(rows_in, dev_lens, dense, C), 20),
+        plain_ms=cuda_ms(lambda: enc.encode_chunk_rows_ref(rows_in, dev_lens, dense, C), 3),
+    )
+    del rows, rows_r, digits, digits_r, valid, rows_in
     for name, r in results.items():
         log(f"kernel {name}: max_abs_err {r['max_abs_err']} "
             f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms")
 
+    wrappers = {name: getattr(mods[m], w) for name, m, w, *_ in KERNELS}
+
+    def count_launches(path_kernels, run):
+        """Run one path with every count at 0; -> (result, launches of
+        the path's kernels), raising if one of them never launched."""
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        out = run()
+        torch.cuda.synchronize()
+        counts = {name: wrappers[name].launches for name in path_kernels}
+        if not all(n > 0 for n in counts.values()):
+            raise AssertionError(f"a kernel of the path never launched: {counts}")
+        return out, counts
+
     # -- 4. the slice through the public entry points
-    for _, m, w, *_ in KERNELS:
-        getattr(mods[m], w).launches = 0
-    torch.cuda.synchronize()
-    blob = compress(data, CodecConfig(), device="cuda")
-    back = decompress(blob, device="cuda")
-    torch.cuda.synchronize()
-    launches = {name: getattr(mods[m], w).launches for name, m, w, *_ in KERNELS}
+    def slice_run():
+        b = compress(data, CodecConfig(), device="cuda")
+        return b, decompress(b, device="cuda")
+
+    (blob, back), slice_launches = count_launches(SLICE_KERNELS, slice_run)
     if back != data:
         raise AssertionError("64 MiB round trip on cuda is not exact")
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
     ratio = len(blob) / len(data)
-    log(f"slice: 64 MiB round trip exact, ratio {ratio:.6f}, launches {launches}")
+    log(f"slice: 64 MiB round trip exact, ratio {ratio:.6f}, launches {slice_launches}")
 
     def rates(label):
         best = {}
@@ -255,7 +382,12 @@ def main() -> int:
     with plain_kernels([(mods[m], w, ref) for _, m, w, ref, *_ in KERNELS]):
         rates("plain path")
 
-    # -- 5. wire parity with the JAX package's recorded hashes
+    # -- 5. the sharded pipeline in a one-rank NCCL group
+    sharded_launches = sharded_phase(data, blob, card, count_launches)
+    launches = {name: slice_launches.get(name, 0) + sharded_launches.get(name, 0)
+                for name, *_ in KERNELS}
+
+    # -- 6. wire parity with the JAX package's recorded hashes
     golden = json.loads((ROOT / "tests" / "data" / "torch_golden.json").read_text())
     for case in golden["cases"]:
         x = (enwik_like(case["size"], case["seed"]) if case["gen"] == "enwik_like"

@@ -6,8 +6,9 @@ reference) to PyTorch with hand-written CUDA kernels for Hopper
 This package imports torch and never jax.
 
 Ported so far: the n=2 canonical Huffman codec through ``compress`` /
-``decompress`` / ``roundtrip`` and the CLI (``python -m
-data_compression_tpu_torch``).  Every entry point takes ``device``
+``decompress`` / ``roundtrip``, the CLI (``python -m
+data_compression_tpu_torch``) and the sharded pipeline on
+``torch.distributed`` (``parallel``).  Every entry point takes ``device``
 explicitly; on a CUDA device the encode, compaction and decode run in
 the kernels under ``csrc/``, on the CPU in their plain PyTorch versions.
 """

@@ -15,6 +15,7 @@ import numpy as np
 
 from data_compression_tpu_torch import framing
 from data_compression_tpu_torch.config import CodecConfig
+from data_compression_tpu_torch.models.base import EncodeResult
 from data_compression_tpu_torch.registry import get_codec
 from data_compression_tpu_torch.utils.crc import crc32, crc32_blocks
 
@@ -42,7 +43,14 @@ def compress(
     blocks, lengths = framing.split_blocks(raw, config.block_size)
     codec = get_codec(config, device)
     result = codec.encode_blocks(blocks, lengths)
+    return pack_blocks(config, len(raw), blocks, lengths, result, meta)
 
+
+def pack_blocks(config: CodecConfig, total_len: int, blocks: np.ndarray,
+                lengths: np.ndarray, result: EncodeResult,
+                meta: Optional[bytes] = None) -> bytes:
+    """Frame encoded blocks: per-block CRC32, the universal LITERAL
+    fallback, the optional meta block and the container header."""
     payloads, flags, crcs = [], [], []
     raw_lens = []
     if meta is not None:
@@ -70,7 +78,7 @@ def compress(
         codec_id=config.codec_id,
         arity=config.arity,
         block_size=config.block_size,
-        total_len=len(raw),
+        total_len=total_len,
         payloads=payloads,
         raw_lens=raw_lens,
         crcs=crcs,

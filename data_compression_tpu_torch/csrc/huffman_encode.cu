@@ -26,6 +26,17 @@
 // CTA exclusive scan of the byte counts -> byte offset of each chunk.
 // Pass (b): re-walk the chunk, OR `code << nbits` into a 64-bit buffer and
 // store whole bytes at the chunk's offset in rows[b, :].
+//
+// A second kernel, `huffman_encode_rows_kernel`, replaces the TPU kernel
+// data_compression_tpu/ops/pallas/encode_kernel.py `_encode_pallas` (body
+// `_make_kernel(compact=False)`): the same lookup, but chunk k of block b
+// goes to its own fixed-stride row b * (S / C) + k of `mb` bytes
+// (mb = max_chunk_bytes(C, 2)), the layout the sharded pipeline gathers
+// across ranks.  With a fixed row per chunk no scan is needed: one pass,
+// each thread owns one chunk (k = tid, tid + 128, ...), counts its digits
+// and emits its bytes from the same 64-bit buffer.  It is bound the same
+// way as the compact kernel (a serial walk per thread), with one read of
+// the input instead of two.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -124,6 +135,57 @@ huffman_encode_kernel(const uint8_t* __restrict__ blocks,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+huffman_encode_rows_kernel(const uint8_t* __restrict__ blocks,
+                           const int32_t* __restrict__ raw_lens,
+                           const int32_t* __restrict__ dense,
+                           uint8_t* __restrict__ rows,
+                           int32_t* __restrict__ digits,
+                           int S, int C, int mb) {
+  __shared__ uint32_t table[256];
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 256; i += kThreads) {
+    table[i] = static_cast<uint32_t>(dense[static_cast<int64_t>(b) * 256 + i]);
+  }
+  const int ncb = S / C;
+  const int raw = raw_lens[b];
+  const uint8_t* src = blocks + static_cast<int64_t>(b) * S;
+  __syncthreads();
+
+  for (int k = tid; k < ncb; k += kThreads) {
+    const int cnt = max(0, min(C, raw - k * C));
+    const uint8_t* p = src + static_cast<int64_t>(k) * C;
+    const int64_t row = static_cast<int64_t>(b) * ncb + k;
+    uint8_t* dst = rows + row * mb;
+    uint64_t acc = 0;  // pending bits, stream order from bit 0
+    uint32_t nacc = 0;  // < 8 between symbols, so acc never overflows
+    uint32_t nd = 0;  // digits of the chunk
+    int off = 0;  // at most mb: every length is masked to <= 15 digits
+    for (int i = 0; i < cnt; i += 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p + i);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (i + j < cnt) {
+          const uint32_t e = table[byte_of(v, j)];
+          const uint32_t len = (e >> kLenShift) & kLenMask;
+          acc |= static_cast<uint64_t>(e & kCodeMask) << nacc;
+          nacc += len;
+          nd += len;
+          while (nacc >= 8u) {
+            dst[off++] = static_cast<uint8_t>(acc);
+            acc >>= 8;
+            nacc -= 8u;
+          }
+        }
+      }
+    }
+    if (nacc > 0u) dst[off] = static_cast<uint8_t>(acc);
+    digits[row] = static_cast<int32_t>(nd);
+  }
+}
+
 }  // namespace
 
 extern "C" int dct_huffman_encode(const void* blocks, const void* raw_lens,
@@ -136,6 +198,18 @@ extern "C" int dct_huffman_encode(const void* blocks, const void* raw_lens,
         static_cast<const int32_t*>(dense), static_cast<uint8_t*>(rows),
         static_cast<int32_t*>(digits), static_cast<int32_t*>(block_bytes), S, C,
         static_cast<int64_t>(row_cap));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dct_huffman_encode_rows(const void* blocks, const void* raw_lens,
+                                       const void* dense, void* rows, void* digits,
+                                       int B, int S, int C, int mb, void* stream) {
+  if (B > 0) {
+    huffman_encode_rows_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(blocks), static_cast<const int32_t*>(raw_lens),
+        static_cast<const int32_t*>(dense), static_cast<uint8_t*>(rows),
+        static_cast<int32_t*>(digits), S, C, mb);
   }
   return static_cast<int>(cudaGetLastError());
 }

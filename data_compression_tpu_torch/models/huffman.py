@@ -19,7 +19,7 @@ decode kernel -> download.
 from __future__ import annotations
 
 import struct
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +50,54 @@ def capped_lengths(freqs: np.ndarray, arity: int) -> np.ndarray:
         freqs = np.where(freqs > 0, (freqs + 1) // 2, 0)
 
 
+def _pack_payload(table_bytes: Optional[bytes], chunk_payloads: List[bytes]) -> bytes:
+    """One block's payload from its chunks (copy of the JAX package's
+    ``_pack_payload``); ``table_bytes`` None marks a shared-table block."""
+    parts = []
+    if table_bytes is None:
+        parts.append(b"\x01")
+    else:
+        if len(table_bytes) != 256:
+            raise ValueError("huffman table must be 256 bytes")
+        parts += [b"\x00", table_bytes]
+    parts.append(struct.pack("<H", len(chunk_payloads)))
+    parts.append(struct.pack(f"<{len(chunk_payloads)}H", *[len(c) for c in chunk_payloads]))
+    parts.extend(chunk_payloads)
+    return b"".join(parts)
+
+
+def _unpack_payload(payload: bytes) -> Tuple[Optional[bytes], List[bytes]]:
+    """Inverse of ``_pack_payload`` -> (table bytes or None, chunk
+    payloads).  Every parse failure raises ValueError."""
+    if not payload:
+        raise ValueError("empty huffman payload")
+    mode = payload[0]
+    off = 1
+    table_bytes = None
+    if mode == 0:
+        table_bytes = payload[1:257]
+        if len(table_bytes) != 256:
+            raise ValueError("truncated huffman payload (table)")
+        off = 257
+    elif mode != 1:
+        raise ValueError(f"bad huffman table mode {mode}")
+    if off + 2 > len(payload):
+        raise ValueError("truncated huffman payload (chunk count)")
+    (nc,) = struct.unpack_from("<H", payload, off)
+    off += 2
+    if off + 2 * nc > len(payload):
+        raise ValueError("truncated huffman payload (chunk lengths)")
+    lens = struct.unpack_from(f"<{nc}H", payload, off)
+    off += 2 * nc
+    chunks = []
+    for ln in lens:
+        chunks.append(payload[off : off + ln])
+        if len(chunks[-1]) != ln:
+            raise ValueError("truncated huffman payload")
+        off += ln
+    return table_bytes, chunks
+
+
 class HuffmanCodec(Codec):
     name = "huffman"
 
@@ -78,7 +126,8 @@ class HuffmanCodec(Codec):
         )
         flat = kcompact.compact_blocks(rows, block_bytes)
         nb = (digits.cpu().numpy().astype(np.int64) + 7) // 8
-        payloads = self._assemble_payloads(flat.cpu().numpy(), nb, lengths, tb)
+        table_rows = None if self.config.shared_table else tb.table_bytes()
+        payloads = self._assemble_payloads(flat.cpu().numpy(), nb, lengths, table_rows)
         return EncodeResult(payloads=payloads, shared_table=shared_table_bytes)
 
     def upload_blocks(self, blocks: np.ndarray, lengths: np.ndarray):
@@ -103,20 +152,19 @@ class HuffmanCodec(Codec):
         flat: np.ndarray,  # block payloads back to back, chunk order
         nb: np.ndarray,  # [B, ncb] per-chunk wire bytes
         raw_lens: np.ndarray,
-        tb,
+        table_rows: Optional[np.ndarray],  # [B, 256] u8, None in shared mode
     ) -> List[bytes]:
         """Copy of the JAX package's ``_assemble_payloads`` with the
-        default tight block starts."""
+        default tight block starts: block i's payload is
+        ``_pack_payload(table_rows[i], its first n_real chunks)``."""
         B, ncb = nb.shape
         C = self.config.chunk_syms
         n_real = np.maximum(1, -(-raw_lens // C)).astype(np.int64)
         block_data = nb.sum(axis=1)
         block_start = np.zeros(B + 1, np.int64)
         np.cumsum(block_data, out=block_start[1:])
-        shared = self.config.shared_table
-        table_rows = None if shared else tb.table_bytes()
         lens16 = nb.astype("<u2")
-        mode = b"\x01" if shared else b"\x00"
+        mode = b"\x01" if table_rows is None else b"\x00"
         payloads = []
         for i in range(B):
             nr = int(n_real[i])

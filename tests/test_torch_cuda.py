@@ -18,6 +18,8 @@ from data_compression_tpu_torch.models.huffman import HuffmanCodec
 from data_compression_tpu_torch.ops.kernels import compact as kcmp
 from data_compression_tpu_torch.ops.kernels import decode as kdec
 from data_compression_tpu_torch.ops.kernels import encode as kenc
+from data_compression_tpu_torch.parallel import compress_sharded, decompress_sharded, make_mesh
+from data_compression_tpu_torch.parallel import multihost
 from data_compression_tpu_torch.utils.corpora import deep_code_block, enwik_like
 
 pytestmark = pytest.mark.cuda
@@ -75,6 +77,42 @@ def test_slice_on_cuda_matches_cpu(cuda, shared):
     assert all(a > c for a, c in zip(after, counts))
 
 
+@pytest.mark.parametrize("chunk_syms", [512, 1024, 16])
+def test_rows_kernel_matches_plain_version(cuda, chunk_syms):
+    """Per-chunk rows: equal digits and equal valid bytes, with chunk 0
+    of the deep-code block made of 15-digit symbols so its row is full."""
+    cfg = pt.CodecConfig(chunk_syms=chunk_syms)
+    codec = HuffmanCodec(cfg, cuda)
+    blocks, lengths = framing.split_blocks(_data(), cfg.block_size)
+    dev_blocks, dev_lens = codec.upload_blocks(blocks, lengths)
+    tb, _ = codec.tables(dev_blocks, dev_lens)
+    dense = to_device(tb, cuda)["dense"]
+    deep = torch.nonzero(((dense[7] >> 15) & 0xF) == 15).flatten().to(torch.uint8)
+    dev_blocks[7, :chunk_syms] = deep[torch.arange(chunk_syms, device=cuda) % deep.numel()]
+    before = kenc.encode_chunk_rows.launches
+    rows, digits = kenc.encode_chunk_rows(dev_blocks, dev_lens, dense, chunk_syms)
+    assert kenc.encode_chunk_rows.launches == before + 1
+    rows_r, digits_r = kenc.encode_chunk_rows_ref(dev_blocks, dev_lens, dense, chunk_syms)
+    assert torch.equal(digits, digits_r)
+    assert int(digits.max()) == 15 * chunk_syms
+    valid = torch.arange(rows.shape[1], device=cuda)[None, :] < (digits[:, None].long() + 7) // 8
+    assert torch.equal(rows[valid], rows_r[valid])
+
+
+def test_sharded_one_rank_nccl_matches_compress(cuda, tmp_path):
+    x = _data()
+    multihost.initialize("nccl", f"file://{tmp_path}/store", 1, 0, device=cuda)
+    try:
+        mesh = make_mesh(cuda)
+        for shared in (False, True):
+            cfg = pt.CodecConfig(shared_table=shared)
+            frame = compress_sharded(x, cfg, mesh)
+            assert frame == pt.compress(x, cfg, device=cuda)
+            assert decompress_sharded(frame, None, mesh) == x
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def test_corrupt_frame_raises_on_cuda(cuda):
     x = enwik_like(3 * 4096, 64)
     cfg = pt.CodecConfig(block_size=4096, chunk_syms=512)
@@ -96,6 +134,10 @@ def test_wrappers_reject_bad_cuda_inputs(cuda):
         kenc.encode_blocks(blocks[:, ::2], lens, dense, 256)  # not contiguous
     with pytest.raises(ValueError):
         kenc.encode_blocks(blocks, lens.cpu(), dense, 512)  # mixed devices
+    with pytest.raises(ValueError):
+        kenc.encode_chunk_rows(blocks[:, ::2], lens, dense, 256)  # not contiguous
+    with pytest.raises(ValueError):
+        kenc.encode_chunk_rows(blocks, lens, dense.cpu(), 256)  # mixed devices
     rows = torch.zeros((2, 64), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
         kcmp.compact_blocks(rows, torch.tensor([65, 0], dtype=torch.int32, device=cuda))
