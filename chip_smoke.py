@@ -10,28 +10,33 @@ script exits non-zero without a result line):
 
   1. print the card (``nvidia-smi`` name and power limit);
   2. build the CUDA kernels from ``data_compression_tpu_torch/csrc``;
-  3. run each kernel against its plain PyTorch version on the card at
-     the main path's shapes (64 MiB = 1024 blocks of 64 KiB, C = 512:
-     a seeded enwik-like corpus plus one deep-code block) and require
-     byte equality of the valid bytes;
-  4. the slice: ``compress`` -> ``decompress`` of the 64 MiB input on
-     ``cuda`` must round-trip, with the launch count of each of its
-     kernels > 0; then compress / decompress GB/s for the kernel path
-     and for the plain path (each kernel wrapper swapped for its plain
-     version);
-  5. the sharded pipeline in a one-rank NCCL group: ``compress_sharded``
-     of the 64 MiB input, with per-block and with shared tables, must
-     give ``compress``'s frame on ``cuda`` and ``decompress_sharded``
-     must round-trip, with the launch count of each of its kernels > 0;
-     then its GB/s and the time of its collectives; the group is
-     destroyed;
-  6. wire parity: the frames of the golden inputs must hash to the
-     SHA-256 recorded from the JAX package, and decode back.
+  3. at each Huffman arity with kernels (2, 16, 3), run each kernel
+     against its plain PyTorch version on the card at the main path's
+     shapes (64 MiB = 1024 blocks of 64 KiB, C = 512: a seeded
+     enwik-like corpus plus one deep-code block, whose table at n = 3
+     and 16 is replaced by a complete tree that reaches the length cap)
+     and require byte equality of the valid bytes; the decode kernel
+     reads the encode kernel's payloads and must give back the input;
+  4. the slice at each arity: ``compress`` -> ``decompress`` of the
+     64 MiB input on ``cuda`` must round-trip, with the launch count of
+     each of its kernels > 0; then compress / decompress GB/s for the
+     kernel path, and at n = 2 also for the plain path (each kernel
+     wrapper swapped for its plain version);
+  5. the sharded pipeline in a one-rank NCCL group, at each arity:
+     ``compress_sharded`` of the 64 MiB input, with per-block and with
+     shared tables, must give ``compress``'s frame on ``cuda`` and
+     ``decompress_sharded`` must round-trip, with the launch count of
+     each of its kernels > 0; then its GB/s, and the time of its
+     collectives; the group is destroyed;
+  6. wire parity: the frames of the golden inputs (n = 2, 16 and 3)
+     must hash to the SHA-256 recorded from the JAX package, and decode
+     back.
 
-The line before the last is a JSON object of the kernels (name, route,
-source, the TPU kernel it replaces, launches in the runs of phases 4
-and 5, each counted from 0, max abs error against the plain version,
-ms per call, plain ms per call);
+The line before the last is a JSON object of the kernels, one entry
+per kernel and arity (name, arity, route, source, the TPU kernel it
+replaces, launches in that arity's runs of phases 4 and 5, each counted
+from 0, max abs error against the plain version, ms per call, plain ms
+per call);
 the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when no CUDA device is available or when the
 package is not beside this script.
@@ -71,6 +76,10 @@ KERNELS = [
 # the kernels each path runs: the single-device slice and the sharded pipeline
 SLICE_KERNELS = ("huffman_encode", "compact", "huffman_decode")
 SHARDED_KERNELS = ("huffman_encode_rows", "huffman_decode")
+# Huffman arities with kernels, and the symbols of a complete tree at the
+# length cap for each of n = 3 and 16 (1 + a multiple of n - 1)
+ARITIES = (2, 16, 3)
+COMPLETE_SYMBOLS = {16: 256, 3: 255}
 
 
 def log(msg: str) -> None:
@@ -144,10 +153,128 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def sharded_phase(data: bytes, blob: bytes, card: str, count_launches) -> dict:
+def kernel_phase(n: int, data: bytes, mods: dict, dev) -> dict:
+    """Each kernel against its plain version at arity ``n`` on the main
+    path's shapes; -> {kernel: max_abs_err, ms, plain_ms}.  The last
+    block's table reaches the length cap L: the deep-code block's own at
+    n = 2, a complete tree (last limit exactly n**L) at n = 3 and 16."""
+    import numpy as np
+    import torch
+
+    from data_compression_tpu_torch import CodecConfig, framing
+    from data_compression_tpu_torch.config import ARITY_MAX_LEN, wire_bytes
+    from data_compression_tpu_torch.huffman import batched as hb
+    from data_compression_tpu_torch.models.huffman import HuffmanCodec
+    from data_compression_tpu_torch.utils.corpora import complete_lengths
+
+    L = ARITY_MAX_LEN[n]
+    cfg = CodecConfig(arity=n)
+    C = cfg.chunk_syms
+    codec = HuffmanCodec(cfg, dev)
+    blocks, lengths = framing.split_blocks(data, cfg.block_size)
+    dev_blocks, dev_lens = codec.upload_blocks(blocks, lengths)
+    tb, _ = codec.tables(dev_blocks, dev_lens)
+    if n == 2:
+        if int(tb.max_len[-1]) != L:
+            raise AssertionError("deep-code block lost its 15-digit codes")
+    else:
+        table_lengths = tb.lengths.copy()
+        table_lengths[-1] = complete_lengths(n, L, COMPLETE_SYMBOLS[n])
+        tb = hb.codes_batch(table_lengths, n)
+    dense = hb.encode_tensors(tb, dev)["dense"]
+    enc, cmp_, dec = mods["encode"], mods["compact"], mods["decode"]
+    results = {}
+
+    rows, digits, bb = enc.encode_blocks(dev_blocks, dev_lens, dense, C, n)
+    rows_r, digits_r, bb_r = enc.encode_blocks_ref(dev_blocks, dev_lens, dense, C, n)
+    torch.cuda.synchronize()
+    if not (torch.equal(digits, digits_r) and torch.equal(bb, bb_r)):
+        raise AssertionError(f"encode n={n}: digit or byte counts differ from the plain version")
+    valid = torch.arange(rows.shape[1], device=dev)[None, :] < bb[:, None].long()
+    results["huffman_encode"] = dict(
+        max_abs_err=max_abs_err(rows, rows_r, valid),
+        ms=cuda_ms(lambda: enc.encode_blocks(dev_blocks, dev_lens, dense, C, n), 20),
+        plain_ms=cuda_ms(lambda: enc.encode_blocks_ref(dev_blocks, dev_lens, dense, C, n), 3),
+    )
+    del rows_r, digits_r, bb_r, valid
+
+    flat = cmp_.compact_blocks(rows, bb)
+    flat_r = cmp_.compact_blocks_ref(rows, bb)
+    if flat.shape != flat_r.shape:
+        raise AssertionError(f"compact n={n}: output sizes differ")
+    results["compact"] = dict(
+        max_abs_err=max_abs_err(flat, flat_r, torch.ones_like(flat, dtype=torch.bool)),
+        ms=cuda_ms(lambda: cmp_.compact_blocks(rows, bb), 20),
+        plain_ms=cuda_ms(lambda: cmp_.compact_blocks_ref(rows, bb), 3),
+    )
+    del rows, flat_r
+
+    # decode the encoded payloads, parsed as decompress parses a frame
+    nb = wire_bytes(digits.cpu().numpy().astype(np.int64), n)
+    payloads = codec._assemble_payloads(flat.cpu().numpy(), nb, lengths, tb.table_bytes())
+    args, _ = codec.decode_inputs(payloads, lengths, None)
+    out = dec.decode_chunks(**args)
+    out_r = dec.decode_chunks_ref(**args)
+    valid = torch.arange(C, device=dev)[None, :] < args["chunk_cnt"][:, None]
+    results["huffman_decode"] = dict(
+        max_abs_err=max_abs_err(out, out_r, valid),
+        ms=cuda_ms(lambda: dec.decode_chunks(**args), 20),
+        plain_ms=cuda_ms(lambda: dec.decode_chunks_ref(**args), 2),
+    )
+    if not torch.equal(out[valid], torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)):
+        raise AssertionError(f"decode n={n}: symbols differ from the input")
+    del out, out_r, args, flat, digits, bb, valid
+
+    # the rows kernel; chunk 0 of the last block is rewritten to its
+    # table's L-digit symbols so that its row fills all max_chunk_bytes
+    deep = torch.from_numpy(np.flatnonzero(tb.lengths[-1] == L).astype(np.uint8)).to(dev)
+    rows_in = dev_blocks.clone()
+    rows_in[-1, :C] = deep[torch.arange(C, device=dev) % deep.numel()]
+    rows, digits = enc.encode_chunk_rows(rows_in, dev_lens, dense, C, n)
+    rows_r, digits_r = enc.encode_chunk_rows_ref(rows_in, dev_lens, dense, C, n)
+    torch.cuda.synchronize()
+    if not torch.equal(digits, digits_r):
+        raise AssertionError(f"encode rows n={n}: digit counts differ from the plain version")
+    if int(digits.max()) != L * C:
+        raise AssertionError(f"encode rows n={n}: no chunk filled its row")
+    valid = torch.arange(rows.shape[1], device=dev)[None, :] < wire_bytes(digits[:, None].long(), n)
+    results["huffman_encode_rows"] = dict(
+        max_abs_err=max_abs_err(rows, rows_r, valid),
+        ms=cuda_ms(lambda: enc.encode_chunk_rows(rows_in, dev_lens, dense, C, n), 20),
+        plain_ms=cuda_ms(lambda: enc.encode_chunk_rows_ref(rows_in, dev_lens, dense, C, n), 3),
+    )
+    del rows, rows_r, digits, digits_r, valid, rows_in, dev_blocks
+    torch.cuda.empty_cache()
+    for name, r in results.items():
+        log(f"kernel {name} n={n}: max_abs_err {r['max_abs_err']} "
+            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms")
+    return results
+
+
+def rates(data: bytes, cfg, blob: bytes, label: str, card: str) -> None:
+    """Best of 3 compress / decompress GB/s of ``data`` on cuda."""
+    from data_compression_tpu_torch import compress, decompress
+
+    best = {}
+    for _ in range(3):
+        b, ev_c, wall_c = timed(lambda: compress(data, cfg, device="cuda"))
+        r, ev_d, wall_d = timed(lambda: decompress(b, device="cuda"))
+        if b != blob or r != data:
+            raise AssertionError(f"{label} output differs")
+        for k, v in (("compress_event", ev_c), ("compress_wall", wall_c),
+                     ("decompress_event", ev_d), ("decompress_wall", wall_d)):
+            best[k] = min(best.get(k, float("inf")), v)
+    gbps = {k: len(data) / (v * 1e-3) / 1e9 for k, v in best.items()}
+    log(f"{label}: compress {gbps['compress_event']:.4f} GB/s (events) "
+        f"{gbps['compress_wall']:.4f} GB/s (wall); decompress "
+        f"{gbps['decompress_event']:.4f} GB/s (events) "
+        f"{gbps['decompress_wall']:.4f} GB/s (wall); best of 3, {len(data) // MIB} MiB; card {card}")
+
+
+def sharded_phase(data: bytes, blobs: dict, card: str, count_launches) -> dict:
     """compress_sharded / decompress_sharded in a one-rank NCCL group on
-    cuda:0, per-block and shared tables; -> launches of the path's
-    kernels, summed over the two checked runs."""
+    cuda:0 at each arity, per-block and shared tables; -> {arity:
+    launches of the path's kernels, summed over its two checked runs}."""
     import torch
     import torch.distributed as dist
 
@@ -163,40 +290,43 @@ def sharded_phase(data: bytes, blob: bytes, card: str, count_launches) -> dict:
                          device=dev)
     try:
         mesh = make_mesh(dev)
-        total = {}
-        for shared in (False, True):
-            cfg = CodecConfig(shared_table=shared)
-            want = blob if not shared else compress(data, cfg, device="cuda")
-            label = "shared table" if shared else "per-block tables"
+        totals = {}
+        for n in ARITIES:
+            total = totals[n] = {}
+            for shared in (False, True):
+                cfg = CodecConfig(arity=n, shared_table=shared)
+                want = blobs[n] if not shared else compress(data, cfg, device="cuda")
+                label = f"n={n}, {'shared table' if shared else 'per-block tables'}"
 
-            def run():
-                f = compress_sharded(data, cfg, mesh)
-                return f, decompress_sharded(f, None, mesh)
+                def run():
+                    f = compress_sharded(data, cfg, mesh)
+                    return f, decompress_sharded(f, None, mesh)
 
-            (frame, back), counts = count_launches(SHARDED_KERNELS, run)
-            if frame != want:
-                raise AssertionError(f"sharded frame ({label}) differs from compress on cuda")
-            if back != data:
-                raise AssertionError(f"sharded round trip ({label}) is not exact")
-            for name, n in counts.items():
-                total[name] = total.get(name, 0) + n
-            best = {}
-            for _ in range(3):
-                f, ev_c, wall_c = timed(lambda: compress_sharded(data, cfg, mesh))
-                r, ev_d, wall_d = timed(lambda: decompress_sharded(f, None, mesh))
-                if f != want or r != data:
-                    raise AssertionError(f"sharded output ({label}) differs between runs")
-                for k, v in (("compress_event", ev_c), ("compress_wall", wall_c),
-                             ("decompress_event", ev_d), ("decompress_wall", wall_d)):
-                    best[k] = min(best.get(k, float("inf")), v)
-            gbps = {k: len(data) / (v * 1e-3) / 1e9 for k, v in best.items()}
-            log(f"sharded ({label}, 1 NCCL rank): frame == compress on cuda, round trip "
-                f"exact, launches {counts}; compress {gbps['compress_event']:.4f} GB/s "
-                f"(events) {gbps['compress_wall']:.4f} GB/s (wall); decompress "
-                f"{gbps['decompress_event']:.4f} GB/s (events) "
-                f"{gbps['decompress_wall']:.4f} GB/s (wall); best of 3, 64 MiB; card {card}")
+                (frame, back), counts = count_launches(SHARDED_KERNELS, run)
+                if frame != want:
+                    raise AssertionError(f"sharded frame ({label}) differs from compress on cuda")
+                if back != data:
+                    raise AssertionError(f"sharded round trip ({label}) is not exact")
+                for name, k in counts.items():
+                    total[name] = total.get(name, 0) + k
+                best = {}
+                for _ in range(3):
+                    f, ev_c, wall_c = timed(lambda: compress_sharded(data, cfg, mesh))
+                    r, ev_d, wall_d = timed(lambda: decompress_sharded(f, None, mesh))
+                    if f != want or r != data:
+                        raise AssertionError(f"sharded output ({label}) differs between runs")
+                    for k, v in (("compress_event", ev_c), ("compress_wall", wall_c),
+                                 ("decompress_event", ev_d), ("decompress_wall", wall_d)):
+                        best[k] = min(best.get(k, float("inf")), v)
+                gbps = {k: len(data) / (v * 1e-3) / 1e9 for k, v in best.items()}
+                log(f"sharded ({label}, 1 NCCL rank): frame == compress on cuda, round trip "
+                    f"exact, launches {counts}; compress {gbps['compress_event']:.4f} GB/s "
+                    f"(events) {gbps['compress_wall']:.4f} GB/s (wall); decompress "
+                    f"{gbps['decompress_event']:.4f} GB/s (events) "
+                    f"{gbps['decompress_wall']:.4f} GB/s (wall); best of 3, {len(data) // MIB} MiB; card {card}")
 
-        # the collectives of the path at its 64 MiB shapes (one rank)
+        # the collectives of the path at its n = 2 shapes (one rank)
+        cfg = CodecConfig()
         nblk = -(-len(data) // cfg.block_size)
         ncb = cfg.block_size // cfg.chunk_syms
         rows = torch.empty((nblk * ncb, max_chunk_bytes(cfg.chunk_syms, 2)),
@@ -214,7 +344,7 @@ def sharded_phase(data: bytes, blob: bytes, card: str, count_launches) -> dict:
         }
         log("sharded collectives (1 NCCL rank, ms per call, CUDA events): "
             + ", ".join(f"{k} {v:.4f}" for k, v in coll.items()) + f"; card {card}")
-        return total
+        return totals
     finally:
         dist.destroy_process_group()
 
@@ -236,8 +366,7 @@ def main() -> int:
 
     import importlib
 
-    from data_compression_tpu_torch import CodecConfig, compress, decompress, framing
-    from data_compression_tpu_torch.models.huffman import HuffmanCodec
+    from data_compression_tpu_torch import CodecConfig, compress, decompress
     from data_compression_tpu_torch.ops.kernels import _build
     from data_compression_tpu_torch.utils.corpora import deep_code_block, enwik_like
 
@@ -256,85 +385,9 @@ def main() -> int:
 
     # -- 3. each kernel against its plain version at the main path's shapes
     data = enwik_like(MAIN_BYTES - 64 * 1024, SEED) + deep_code_block(64 * 1024, SEED)
-    cfg = CodecConfig()
-    codec = HuffmanCodec(cfg, dev)
-    blocks, lengths = framing.split_blocks(data, cfg.block_size)
-    dev_blocks, dev_lens = codec.upload_blocks(blocks, lengths)
-    tb, _ = codec.tables(dev_blocks, dev_lens)
-    if int(tb.max_len[-1]) != 15:
-        raise AssertionError("deep-code block lost its 15-digit codes")
-    from data_compression_tpu_torch.huffman.batched import to_device
-
-    dense = to_device(tb, dev)["dense"]
-    C = cfg.chunk_syms
     mods = {m: importlib.import_module(f"data_compression_tpu_torch.ops.kernels.{m}")
             for _, m, *_ in KERNELS}
-    enc, cmp_, dec = mods["encode"], mods["compact"], mods["decode"]
-    results = {}
-
-    rows, digits, bb = enc.encode_blocks(dev_blocks, dev_lens, dense, C)
-    rows_r, digits_r, bb_r = enc.encode_blocks_ref(dev_blocks, dev_lens, dense, C)
-    torch.cuda.synchronize()
-    if not (torch.equal(digits, digits_r) and torch.equal(bb, bb_r)):
-        raise AssertionError("encode: digit or byte counts differ from the plain version")
-    valid = torch.arange(rows.shape[1], device=dev)[None, :] < bb[:, None].long()
-    results["huffman_encode"] = dict(
-        max_abs_err=max_abs_err(rows, rows_r, valid),
-        ms=cuda_ms(lambda: enc.encode_blocks(dev_blocks, dev_lens, dense, C), 20),
-        plain_ms=cuda_ms(lambda: enc.encode_blocks_ref(dev_blocks, dev_lens, dense, C), 3),
-    )
-    del rows_r, digits_r, bb_r
-
-    flat = cmp_.compact_blocks(rows, bb)
-    flat_r = cmp_.compact_blocks_ref(rows, bb)
-    if flat.shape != flat_r.shape:
-        raise AssertionError("compact: output sizes differ")
-    results["compact"] = dict(
-        max_abs_err=max_abs_err(flat, flat_r, torch.ones_like(flat, dtype=torch.bool)),
-        ms=cuda_ms(lambda: cmp_.compact_blocks(rows, bb), 20),
-        plain_ms=cuda_ms(lambda: cmp_.compact_blocks_ref(rows, bb), 3),
-    )
-    del rows, flat, flat_r
-
-    frame = framing.unpack_frame(compress(data, cfg, device=dev))
-    if any(e.is_literal for e in frame.entries):
-        raise AssertionError("main-path input fell back to LITERAL blocks")
-    args, _ = codec.decode_inputs(
-        frame.payloads, [e.raw_len for e in frame.entries], frame.shared_table
-    )
-    out = dec.decode_chunks(**args)
-    out_r = dec.decode_chunks_ref(**args)
-    valid = torch.arange(C, device=dev)[None, :] < args["chunk_cnt"][:, None]
-    results["huffman_decode"] = dict(
-        max_abs_err=max_abs_err(out, out_r, valid),
-        ms=cuda_ms(lambda: dec.decode_chunks(**args), 20),
-        plain_ms=cuda_ms(lambda: dec.decode_chunks_ref(**args), 2),
-    )
-    del out, out_r, args
-
-    # the rows kernel; chunk 0 of the deep-code block is rewritten to its
-    # table's 15-digit symbols so that its row fills all max_chunk_bytes
-    deep = torch.nonzero(((dense[-1] >> 15) & 0xF) == 15).flatten().to(torch.uint8)
-    rows_in = dev_blocks.clone()
-    rows_in[-1, :C] = deep[torch.arange(C, device=dev) % deep.numel()]
-    rows, digits = enc.encode_chunk_rows(rows_in, dev_lens, dense, C)
-    rows_r, digits_r = enc.encode_chunk_rows_ref(rows_in, dev_lens, dense, C)
-    torch.cuda.synchronize()
-    if not torch.equal(digits, digits_r):
-        raise AssertionError("encode rows: digit counts differ from the plain version")
-    if int(digits.max()) != 15 * C:
-        raise AssertionError("encode rows: no chunk filled its row")
-    valid = torch.arange(rows.shape[1], device=dev)[None, :] < ((digits[:, None].long() + 7) // 8)
-    results["huffman_encode_rows"] = dict(
-        max_abs_err=max_abs_err(rows, rows_r, valid),
-        ms=cuda_ms(lambda: enc.encode_chunk_rows(rows_in, dev_lens, dense, C), 20),
-        plain_ms=cuda_ms(lambda: enc.encode_chunk_rows_ref(rows_in, dev_lens, dense, C), 3),
-    )
-    del rows, rows_r, digits, digits_r, valid, rows_in
-    for name, r in results.items():
-        log(f"kernel {name}: max_abs_err {r['max_abs_err']} "
-            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms")
-
+    results = {n: kernel_phase(n, data, mods, dev) for n in ARITIES}
     wrappers = {name: getattr(mods[m], w) for name, m, w, *_ in KERNELS}
 
     def count_launches(path_kernels, run):
@@ -346,53 +399,40 @@ def main() -> int:
         out = run()
         torch.cuda.synchronize()
         counts = {name: wrappers[name].launches for name in path_kernels}
-        if not all(n > 0 for n in counts.values()):
+        if not all(k > 0 for k in counts.values()):
             raise AssertionError(f"a kernel of the path never launched: {counts}")
         return out, counts
 
-    # -- 4. the slice through the public entry points
-    def slice_run():
-        b = compress(data, CodecConfig(), device="cuda")
-        return b, decompress(b, device="cuda")
+    # -- 4. the slice through the public entry points, at each arity
+    blobs, slice_launches = {}, {}
+    for n in ARITIES:
+        cfg = CodecConfig(arity=n)
 
-    (blob, back), slice_launches = count_launches(SLICE_KERNELS, slice_run)
-    if back != data:
-        raise AssertionError("64 MiB round trip on cuda is not exact")
-    ratio = len(blob) / len(data)
-    log(f"slice: 64 MiB round trip exact, ratio {ratio:.6f}, launches {slice_launches}")
+        def slice_run():
+            b = compress(data, cfg, device="cuda")
+            return b, decompress(b, device="cuda")
 
-    def rates(label):
-        best = {}
-        for _ in range(3):
-            b, ev_c, wall_c = timed(lambda: compress(data, CodecConfig(), device="cuda"))
-            r, ev_d, wall_d = timed(lambda: decompress(b, device="cuda"))
-            if b != blob or r != data:
-                raise AssertionError(f"{label} path output differs")
-            for k, v in (("compress_event", ev_c), ("compress_wall", wall_c),
-                         ("decompress_event", ev_d), ("decompress_wall", wall_d)):
-                best[k] = min(best.get(k, float("inf")), v)
-        gbps = {k: len(data) / (v * 1e-3) / 1e9 for k, v in best.items()}
-        log(f"slice {label}: compress {gbps['compress_event']:.4f} GB/s (events) "
-            f"{gbps['compress_wall']:.4f} GB/s (wall); decompress "
-            f"{gbps['decompress_event']:.4f} GB/s (events) "
-            f"{gbps['decompress_wall']:.4f} GB/s (wall); best of 3, 64 MiB; card {card}")
-        return gbps
-
-    rates("kernel path")
-    with plain_kernels([(mods[m], w, ref) for _, m, w, ref, *_ in KERNELS]):
-        rates("plain path")
+        (blob, back), slice_launches[n] = count_launches(SLICE_KERNELS, slice_run)
+        if back != data:
+            raise AssertionError(f"round trip on cuda at n={n} is not exact")
+        blobs[n] = blob
+        log(f"slice n={n}: {len(data) // MIB} MiB round trip exact, ratio {len(blob) / len(data):.6f}, "
+            f"launches {slice_launches[n]}")
+        rates(data, cfg, blob, f"slice n={n} kernel path", card)
+        if n == 2:
+            with plain_kernels([(mods[m], w, ref) for _, m, w, ref, *_ in KERNELS]):
+                rates(data, cfg, blob, "slice n=2 plain path", card)
 
     # -- 5. the sharded pipeline in a one-rank NCCL group
-    sharded_launches = sharded_phase(data, blob, card, count_launches)
-    launches = {name: slice_launches.get(name, 0) + sharded_launches.get(name, 0)
-                for name, *_ in KERNELS}
+    sharded_launches = sharded_phase(data, blobs, card, count_launches)
 
     # -- 6. wire parity with the JAX package's recorded hashes
     golden = json.loads((ROOT / "tests" / "data" / "torch_golden.json").read_text())
     for case in golden["cases"]:
         x = (enwik_like(case["size"], case["seed"]) if case["gen"] == "enwik_like"
              else deep_code_block(case["size"], case["seed"]))
-        f = compress(x, CodecConfig(shared_table=case["shared_table"]), device="cuda")
+        cfg = CodecConfig(arity=case["arity"], shared_table=case["shared_table"])
+        f = compress(x, cfg, device="cuda")
         digest = hashlib.sha256(f).hexdigest()
         if digest != case["sha256"] or len(f) != case["length"]:
             raise AssertionError(f"golden {case['name']}: frame differs from the JAX package's")
@@ -402,8 +442,10 @@ def main() -> int:
 
     log(f"card: {card}")
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=src, replaces=rep,
-             launches=launches[name], **results[name])
+        dict(name=name, arity=n, route="cuda", source=src, replaces=rep,
+             launches=slice_launches[n].get(name, 0) + sharded_launches[n].get(name, 0),
+             **results[n][name])
+        for n in ARITIES
         for name, _, _, _, src, rep in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {

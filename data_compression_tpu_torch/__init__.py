@@ -5,12 +5,14 @@ reference) to PyTorch with hand-written CUDA kernels for Hopper
 (``sm_90a``).  Its containers are byte-identical to the reference's.
 This package imports torch and never jax.
 
-Ported so far: the n=2 canonical Huffman codec through ``compress`` /
+Ported so far: the n-ary canonical Huffman codec through ``compress`` /
 ``decompress`` / ``roundtrip``, the CLI (``python -m
 data_compression_tpu_torch``) and the sharded pipeline on
 ``torch.distributed`` (``parallel``).  Every entry point takes ``device``
-explicitly; on a CUDA device the encode, compaction and decode run in
-the kernels under ``csrc/``, on the CPU in their plain PyTorch versions.
+explicitly; at arities 2, 3 and 16 on a CUDA device the encode,
+compaction and decode run in the kernels under ``csrc/``, on the CPU in
+their plain PyTorch versions.  Every other arity runs the pure-Python
+host path on any device, as in the reference.
 """
 
 from data_compression_tpu_torch.api import compress, decompress, roundtrip

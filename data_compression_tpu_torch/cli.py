@@ -72,7 +72,9 @@ def main(argv=None) -> int:
 
     def add_codec_flags(sp):
         sp.add_argument("-c", "--codec", default="huffman", choices=sorted(CODEC_IDS))
-        sp.add_argument("-n", "--arity", type=int, default=2)
+        sp.add_argument("-n", "--arity", type=int, default=2,
+                        help="huffman arity, 2-64 (2/3/16 run the CUDA kernels; "
+                        "other n ride the host path)")
         sp.add_argument("--block-size", type=int, default=64 * 1024)
         sp.add_argument("--chunk-syms", type=int, default=512)
         sp.add_argument("--shared-table", action="store_true")

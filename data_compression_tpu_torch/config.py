@@ -4,7 +4,7 @@ The format fields, their defaults and their validation are the JAX
 package's, so the same ``CodecConfig`` gives the same container bytes.
 The TPU execution knobs (``use_pallas``, ``use_device``, ``use_scan``)
 are gone: where the port runs is the ``device`` argument of each entry
-point.
+point, and which route a Huffman arity takes is ``FAST_ARITIES``.
 """
 
 from __future__ import annotations
@@ -29,8 +29,9 @@ MAX_CODE_LEN = 15
 
 MAX_ARITY = 64
 
-# Huffman arities this package runs today; others raise NotImplementedError.
-PORTED_ARITIES = (2,)
+# Huffman arities with a bit-field wire packing, run by the CUDA kernels
+# (the JAX package's FAST_ARITIES); every other arity rides the host path.
+FAST_ARITIES = (2, 3, 16)
 
 
 def _digits_per_byte(n: int) -> int:
@@ -59,8 +60,14 @@ ARITY_DIGITS_PER_BYTE = {n: _digits_per_byte(n) for n in range(2, MAX_ARITY + 1)
 def max_chunk_bytes(chunk_syms: int, arity: int) -> int:
     """Wire bytes of a chunk whose every symbol has the longest code
     (``data_compression_tpu/ops/huffman_coding.py:max_chunk_bytes``)."""
+    return wire_bytes(chunk_syms * ARITY_MAX_LEN[arity], arity)
+
+
+def wire_bytes(digits, arity: int):
+    """Wire bytes of chunks of ``digits`` code digits: ceil(digits / D)
+    (ints, numpy arrays or tensors)."""
     d = ARITY_DIGITS_PER_BYTE[arity]
-    return -(-(chunk_syms * ARITY_MAX_LEN[arity]) // d)
+    return (digits + d - 1) // d
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from data_compression_tpu_torch.config import ARITY_MAX_LEN
+from data_compression_tpu_torch.huffman.canonical import CanonicalTable
 from data_compression_tpu_torch.huffman.tree import huffman_lengths
 
 # Bit-field width of one digit in the packed encode words.
@@ -83,6 +84,23 @@ class TableBatch:
     @property
     def num_blocks(self) -> int:
         return self.lengths.shape[0]
+
+    def table(self, i: int) -> CanonicalTable:
+        """Row i as a CanonicalTable (trimmed to its own max_len)."""
+        ml = int(self.max_len[i])
+        used = self.lengths[i] > 0
+        min_len = int(self.lengths[i][used].min()) if used.any() else 0
+        return CanonicalTable(
+            arity=self.arity,
+            lengths=self.lengths[i],
+            codes=self.codes[i],
+            first_code=self.first_code[i, : ml + 1],
+            count=self.count[i, : ml + 1],
+            base_index=self.base_index[i, : ml + 1],
+            sorted_symbols=self.sorted_symbols[i, : int(self.n_used[i])].astype(np.int64),
+            max_len=ml,
+            min_len=min_len,
+        )
 
     def table_bytes(self) -> np.ndarray:
         """[B, S] uint8 — each row is the block's wire length table."""
@@ -237,7 +255,11 @@ def _int32(a, device) -> torch.Tensor:
 
 
 def encode_tensors(tb: TableBatch, device) -> dict:
-    """``dense`` [B, 256] int32 encode entries on ``device``."""
+    """``dense`` int32 encode entries on ``device``, the rows of
+    ``dense_rows`` back to back: [B, 256] ``digits << PACKED_LEN_SHIFT[n]
+    | code`` at n = 2 and 16; [B, 512] at n = 3, the field-packed codes
+    (2 bits per trit) in [:, :256] and their field-bit counts (2 per
+    trit) in [:, 256:]."""
     return {"dense": _int32(dense_rows(tb).reshape(tb.num_blocks, -1), device)}
 
 

@@ -1,4 +1,4 @@
-"""Canonical Huffman codec, n = 2, on PyTorch.
+"""n-ary canonical Huffman codec (n = 2 ... 64) on PyTorch.
 
 Counterpart of ``data_compression_tpu/models/huffman.py``; its frames are
 byte-identical.  Block payload layout (all little-endian):
@@ -7,13 +7,21 @@ byte-identical.  Block payload layout (all little-endian):
   [inline only] u8[256] canonical length per symbol
   u16  num_chunks
   u16  chunk_bytes[num_chunks]
-  chunk payloads, each byte-aligned (8 binary digits per byte)
+  chunk payloads, each byte-aligned (digits packed per
+        ARITY_DIGITS_PER_BYTE: 8 bits / 5 trits / 2 nybbles / ...)
 
-Encode: device histogram -> host canonical tables -> encode kernel ->
-exact block byte totals -> compact kernel -> download of the payload
-bytes and chunk byte counts -> host payload assembly.  Decode: host
-payload parse -> upload of the payload bytes with per-chunk offsets ->
-decode kernel -> download.
+Two routes, chosen by arity as the JAX codec chooses them:
+
+  * n in FAST_ARITIES (2, 3, 16), on the codec's device.  Encode:
+    device histogram -> host canonical tables -> encode kernel -> exact
+    block byte totals -> compact kernel -> download of the payload bytes
+    and chunk byte counts -> host payload assembly.  Decode: host payload
+    parse -> upload of the payload bytes with per-chunk offsets -> decode
+    kernel -> download.
+  * any other n (the reference's 9/10-ary experiments) has no bit-field
+    wire packing and no kernel, in the JAX package as here: the digit-
+    generic host path ``encode_chunk_np`` / ``decode_chunk_np`` in pure
+    Python, on any device (only the histogram runs there).
 """
 
 from __future__ import annotations
@@ -25,11 +33,14 @@ import numpy as np
 import torch
 
 from data_compression_tpu_torch.config import (
+    ARITY_DIGITS_PER_BYTE,
     ARITY_MAX_LEN,
-    PORTED_ARITIES,
+    FAST_ARITIES,
     max_chunk_bytes,
+    wire_bytes,
 )
 from data_compression_tpu_torch.huffman import batched as hb
+from data_compression_tpu_torch.huffman.canonical import CanonicalTable
 from data_compression_tpu_torch.huffman.tree import huffman_lengths
 from data_compression_tpu_torch.models.base import Codec, EncodeResult
 from data_compression_tpu_torch.ops.histogram import block_histograms
@@ -48,6 +59,64 @@ def capped_lengths(freqs: np.ndarray, arity: int) -> np.ndarray:
         if lengths.max(initial=0) <= cap:
             return lengths
         freqs = np.where(freqs > 0, (freqs + 1) // 2, 0)
+
+
+def encode_chunk_np(syms: np.ndarray, table: CanonicalTable) -> bytes:
+    """One chunk's wire bytes, digit by digit (copy of the JAX package's
+    host encoder): the codes' base-n digits MSB first, D to a byte,
+    little-endian, the last byte zero-padded."""
+    n = table.arity
+    D = ARITY_DIGITS_PER_BYTE[n]
+    digits: List[int] = []
+    for s in syms:
+        code = int(table.codes[s])
+        ln = int(table.lengths[s])
+        assert ln > 0, f"symbol {s} has no code"
+        for p in range(ln - 1, -1, -1):
+            digits.append((code // n**p) % n)
+    while len(digits) % D:
+        digits.append(0)
+    out = bytearray()
+    for k in range(0, len(digits), D):
+        b = 0
+        for d in range(D):
+            b += digits[k + d] * n**d
+        out.append(b)
+    return bytes(out)
+
+
+def decode_chunk_np(payload: bytes, count: int, table: CanonicalTable) -> np.ndarray:
+    """Inverse of ``encode_chunk_np`` for ``count`` symbols (copy of the
+    JAX package's host decoder); a stream that runs out or holds no
+    valid code raises ValueError."""
+    n = table.arity
+    D = ARITY_DIGITS_PER_BYTE[n]
+    digits: List[int] = []
+    for b in payload:
+        for d in range(D):
+            digits.append((b // n**d) % n)
+    out = np.empty(count, np.uint8)
+    off = 0
+    for i in range(count):
+        value = 0
+        ln = 0
+        while True:
+            ln += 1
+            if off + ln > len(digits):
+                raise ValueError("truncated huffman chunk")
+            value = value * n + digits[off + ln - 1]
+            if ln >= len(table.first_code):
+                cnt = 0
+            else:
+                cnt = int(table.count[ln]) if ln < table.count.shape[0] else 0
+            if cnt and table.first_code[ln] <= value < table.first_code[ln] + cnt:
+                break
+            if ln > table.max_len:
+                raise ValueError("invalid huffman stream")
+        sidx = int(table.base_index[ln]) + value - int(table.first_code[ln])
+        out[i] = table.sorted_symbols[sidx]
+        off += ln
+    return out
 
 
 def _pack_payload(table_bytes: Optional[bytes], chunk_payloads: List[bytes]) -> bytes:
@@ -99,14 +168,11 @@ def _unpack_payload(payload: bytes) -> Tuple[Optional[bytes], List[bytes]]:
 
 
 class HuffmanCodec(Codec):
-    name = "huffman"
+    """Huffman codec on ``device``: the CUDA kernels (their plain versions
+    on the CPU) for n in FAST_ARITIES, the pure-Python host path for
+    every other arity, as the JAX codec dispatches."""
 
-    def __init__(self, config, device="cuda"):
-        super().__init__(config, device)
-        if config.arity not in PORTED_ARITIES:
-            raise NotImplementedError(
-                f"huffman arity {config.arity} is not yet ported"
-            )
+    name = "huffman"
 
     def _n_chunks(self, raw_len: int) -> int:
         """Chunks in a block's payload: at least one, even when empty."""
@@ -118,17 +184,36 @@ class HuffmanCodec(Codec):
         if blocks.shape[0] == 0:
             return EncodeResult(payloads=[], shared_table=None)
         lengths = np.asarray(lengths, np.int64)
+        arity = self.config.arity
         dev_blocks, dev_lens = self.upload_blocks(blocks, lengths)
         tb, shared_table_bytes = self.tables(dev_blocks, dev_lens)
+        table_rows = None if self.config.shared_table else tb.table_bytes()
+        if arity not in FAST_ARITIES:
+            payloads = self._encode_host(blocks, lengths, tb, table_rows)
+            return EncodeResult(payloads=payloads, shared_table=shared_table_bytes)
         dense = hb.encode_tensors(tb, self.device)["dense"]
         rows, digits, block_bytes = kencode.encode_blocks(
-            dev_blocks, dev_lens, dense, self.config.chunk_syms
+            dev_blocks, dev_lens, dense, self.config.chunk_syms, arity
         )
         flat = kcompact.compact_blocks(rows, block_bytes)
-        nb = (digits.cpu().numpy().astype(np.int64) + 7) // 8
-        table_rows = None if self.config.shared_table else tb.table_bytes()
+        nb = wire_bytes(digits.cpu().numpy().astype(np.int64), arity)
         payloads = self._assemble_payloads(flat.cpu().numpy(), nb, lengths, table_rows)
         return EncodeResult(payloads=payloads, shared_table=shared_table_bytes)
+
+    def _encode_host(self, blocks, lengths, tb, table_rows) -> List[bytes]:
+        """The host path: every chunk through ``encode_chunk_np``."""
+        C = self.config.chunk_syms
+        payloads = []
+        for i in range(blocks.shape[0]):
+            raw_len = int(lengths[i])
+            table = tb.table(i)
+            chunks = [
+                encode_chunk_np(blocks[i, c * C : min(raw_len, (c + 1) * C)], table)
+                for c in range(self._n_chunks(raw_len))
+            ]
+            row = None if table_rows is None else table_rows[i].tobytes()
+            payloads.append(_pack_payload(row, chunks))
+        return payloads
 
     def upload_blocks(self, blocks: np.ndarray, lengths: np.ndarray):
         """-> ([B, S] uint8, [B] int32 raw lengths) on the codec's device."""
@@ -189,6 +274,8 @@ class HuffmanCodec(Codec):
     ) -> List[bytes]:
         if not payloads:
             return []
+        if self.config.arity not in FAST_ARITIES:
+            return self._decode_host(payloads, raw_lens, shared_table)
         args, n_real = self.decode_inputs(payloads, raw_lens, shared_table)
         out = kdecode.decode_chunks(**args).cpu().numpy()
         result = []
@@ -197,6 +284,29 @@ class HuffmanCodec(Codec):
             result.append(out[start : start + nc].reshape(-1)[: int(raw_len)].tobytes())
             start += nc
         return result
+
+    def _decode_host(self, payloads, raw_lens, shared_table) -> List[bytes]:
+        """The host path: every chunk through ``decode_chunk_np``."""
+        arity, C = self.config.arity, self.config.chunk_syms
+        shared = None
+        out = []
+        for payload, raw_len in zip(payloads, raw_lens):
+            table_bytes, chunks = _unpack_payload(payload)
+            if table_bytes is not None:
+                table = CanonicalTable.from_bytes(table_bytes, arity)
+            elif shared_table is None:
+                raise ValueError("stream requires shared table but frame has none")
+            else:
+                shared = shared or CanonicalTable.from_bytes(shared_table, arity)
+                table = shared
+            if len(chunks) != self._n_chunks(int(raw_len)):
+                raise ValueError("huffman chunk count mismatch")
+            parts = [
+                decode_chunk_np(ch, max(0, min(C, int(raw_len) - c * C)), table)
+                for c, ch in enumerate(chunks)
+            ]
+            out.append(np.concatenate(parts)[: int(raw_len)].tobytes())
+        return out
 
     def decode_inputs(self, payloads, raw_lens, shared_table):
         """Parse the payloads and upload what the decode kernel reads:
@@ -236,6 +346,7 @@ class HuffmanCodec(Codec):
             bmf=tabs["bmf"],
             symbols=tabs["symbols"],
             chunk_syms=C,
+            arity=arity,
         )
         return args, n_real
 

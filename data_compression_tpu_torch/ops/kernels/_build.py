@@ -2,7 +2,8 @@
 
 The sources in ``data_compression_tpu_torch/csrc/*.cu`` have a plain C
 interface.  At the first launch on a CUDA tensor they are compiled with
-``nvcc`` for ``sm_90a`` into one shared library under
+``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started together,
+then one link) into one shared library under
 ``data_compression_tpu_torch/build/`` (git-ignored, located relative to
 this package, not the working directory) and loaded with ``ctypes``.
 The library's file name carries a hash of the sources and flags, so a
@@ -34,7 +35,7 @@ BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("huffman_encode.cu", "compact.cu", "huffman_decode.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -42,10 +43,10 @@ _I = ctypes.c_int
 _I64 = ctypes.c_longlong
 SIGNATURES = {
     # name: argtypes (every entry point returns a cudaError_t as int)
-    "dct_huffman_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _P],
-    "dct_huffman_encode_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dct_huffman_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _I, _P],
+    "dct_huffman_encode_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "dct_compact": [_P, _P, _P, _P, _I, _I64, _P],
-    "dct_huffman_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "dct_huffman_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -72,16 +73,36 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libdct_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> None:
+    """Wait for every (command, process); raise on the first failure."""
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}"
+    if failed:
+        raise RuntimeError(failed)
+
+
 def _build(target: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(CSRC_DIR / name) for name in SOURCES]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n{r.stdout}\n{r.stderr}"
-        )
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for name in SOURCES:
+        obj = tmp.with_name(f"{tmp.name}.{name}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC_DIR / name)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    try:
+        _run(procs)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, target)  # atomic: a concurrent build never sees a half-written file
 
 

@@ -1,15 +1,18 @@
-"""Huffman chunk decode, n = 2 (kernel: ``csrc/huffman_decode.cu``).
+"""Huffman chunk decode, n = 2, 3 and 16 (kernel: ``csrc/huffman_decode.cu``).
 
 Replaces ``data_compression_tpu/ops/pallas/decode_kernel.py``
 ``_decode_pallas``.  Inputs, for K chunks of B blocks:
 
-  flat [N] uint8 — every chunk's wire bytes, back to back;
+  flat [N] uint8 — every chunk's wire bytes, back to back (digit j of a
+      chunk is digit j % D of its byte j // D, little-endian, D =
+      ARITY_DIGITS_PER_BYTE[n]);
   chunk_off [K+1] int64 — chunk k is flat[chunk_off[k]:chunk_off[k+1]]
       (nondecreasing, within flat; checked on CUDA tensors);
   chunk_cnt [K] int32 — symbols in chunk k (at most C);
   chunk_blk [K] int32 — table row of chunk k, nondecreasing;
-  limit, bmf [B, 16] int32 and symbols [B, 256] int32 — the scaled decode
-      tables of ``huffman.batched.decode_rows``.
+  limit, bmf [B, L+1] int32 (L = ARITY_MAX_LEN[n]: 15 at n = 2 and 3, 7
+      at n = 16) and symbols [B, 256] int32 — the scaled decode tables of
+      ``huffman.batched.decode_rows``.
 
 Output: [K, C] uint8, chunk k's symbols in row k; bytes past
 chunk_cnt[k] are undefined.
@@ -19,14 +22,15 @@ from __future__ import annotations
 
 import torch
 
-from data_compression_tpu_torch.config import ARITY_MAX_LEN
+from data_compression_tpu_torch.config import ARITY_DIGITS_PER_BYTE, ARITY_MAX_LEN, FAST_ARITIES
 from data_compression_tpu_torch.ops.kernels import _build
 
-_L = ARITY_MAX_LEN[2]
 _REF_BATCH = 32768  # chunks per step of the plain version (bounds memory)
 
 
-def _check(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols, chunk_syms):
+def _check(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols, chunk_syms, arity):
+    if arity not in FAST_ARITIES:
+        raise ValueError(f"no decode kernel for arity {arity}")
     K = chunk_cnt.shape[0] if chunk_cnt.dim() == 1 else -1
     if flat.dtype != torch.uint8 or flat.dim() != 1:
         raise ValueError("flat must be a 1-D uint8 tensor")
@@ -37,7 +41,8 @@ def _check(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols, chunk_sym
     if tuple(chunk_blk.shape) != (K,):
         raise ValueError("chunk_blk must be [K]")
     B = limit.shape[0]
-    for name, t, w in (("limit", limit, _L + 1), ("bmf", bmf, _L + 1), ("symbols", symbols, 256)):
+    L = ARITY_MAX_LEN[arity]
+    for name, t, w in (("limit", limit, L + 1), ("bmf", bmf, L + 1), ("symbols", symbols, 256)):
         if t.dtype != torch.int32 or tuple(t.shape) != (B, w):
             raise ValueError(f"{name} must be [{B}, {w}] int32")
     C = chunk_syms
@@ -47,23 +52,24 @@ def _check(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols, chunk_sym
 
 
 def decode_chunks_ref(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
-                      chunk_syms):
+                      chunk_syms, arity=2):
     """Plain PyTorch version (any device): the window / length / rank
-    formulation of ``data_compression_tpu/ops/decode_fast.py``, with a
-    Python loop over digit positions for the boundary walk."""
+    formulation of ``data_compression_tpu/ops/decode_fast.py`` (digits
+    unpacked from each byte, the window a base-n Horner over L digits),
+    with a Python loop over digit positions for the boundary walk."""
     K, B, C = _check(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
-                     chunk_syms)
+                     chunk_syms, arity)
     out = torch.zeros((K, C), dtype=torch.uint8, device=flat.device)
     for k0 in range(0, K, _REF_BATCH):
         k1 = min(K, k0 + _REF_BATCH)
         out[k0:k1] = _decode_ref_batch(
             flat, chunk_off[k0 : k1 + 1], chunk_cnt[k0:k1], chunk_blk[k0:k1],
-            limit, bmf, symbols, C,
+            limit, bmf, symbols, C, arity,
         )
     return out
 
 
-def _decode_ref_batch(flat, off, cnt, blk, limit, bmf, symbols, C):
+def _decode_ref_batch(flat, off, cnt, blk, limit, bmf, symbols, C, n):
     dev = flat.device
     K = cnt.shape[0]
     nb = off[1:] - off[:-1]
@@ -77,19 +83,22 @@ def _decode_ref_batch(flat, off, cnt, blk, limit, bmf, symbols, C):
     idx = torch.where(inb, off[:-1, None] + j[None, :], 0)
     src = flat if flat.numel() else torch.zeros(1, dtype=torch.uint8, device=dev)
     pay = torch.where(inb, src[idx], 0).to(torch.int64)  # [K, mb]
-    # stream digit t = bit (t & 7) of byte (t >> 3); int64 shifts only
-    bits = (pay[:, :, None] >> torch.arange(8, device=dev)) & 1
-    T = mb * 8
-    bits = torch.cat([bits.view(K, T), torch.zeros((K, _L), dtype=torch.int64, device=dev)], 1)
+    # stream digit t = digit t % D of byte t // D, weight n**(t % D)
+    L, D = ARITY_MAX_LEN[n], ARITY_DIGITS_PER_BYTE[n]
+    weight = n ** torch.arange(D, device=dev)
+    digits = (pay[:, :, None] // weight) % n
+    T = mb * D
+    digits = torch.cat([digits.view(K, T), torch.zeros((K, L), dtype=torch.int64, device=dev)], 1)
     W = torch.zeros((K, T), dtype=torch.int64, device=dev)
-    for i in range(_L):
-        W = (W << 1) | bits[:, i : i + T]
+    for i in range(L):
+        W = W * n + digits[:, i : i + T]
     lim = limit.to(torch.int64)[blk.long()]  # [K, L+1]
     ln = torch.ones((K, T), dtype=torch.int64, device=dev)
-    for l in range(1, _L):
+    for l in range(1, L):
         ln += (W >= lim[:, l : l + 1]).to(torch.int64)
     bm = torch.gather(bmf.to(torch.int64)[blk.long()], 1, ln)
-    rank = (bm + (W >> (_L - ln))) & 0xFF
+    scale = n ** (L - torch.arange(L + 1, device=dev))  # n**(L - ln), by ln
+    rank = (bm + W // scale[ln]) & 0xFF
     # boundary walk: distance to the next codeword start
     lnT = ln.t().contiguous()
     maskT = torch.empty((T, K), dtype=torch.bool, device=dev)
@@ -108,14 +117,14 @@ def _decode_ref_batch(flat, off, cnt, blk, limit, bmf, symbols, C):
 
 
 def decode_chunks(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
-                  chunk_syms):
+                  chunk_syms, arity=2):
     """Decode on the tensors' device: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors.  -> [K, C] uint8."""
     if flat.device.type == "cpu":
         return decode_chunks_ref(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf,
-                                 symbols, chunk_syms)
+                                 symbols, chunk_syms, arity)
     K, B, C = _check(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
-                     chunk_syms)
+                     chunk_syms, arity)
     _build.require_cuda(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols)
     dev = flat.device
     out = torch.empty((K, C), dtype=torch.uint8, device=dev)
@@ -134,7 +143,7 @@ def decode_chunks(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
             rc = _build.lib().dct_huffman_decode(
                 flat.data_ptr(), chunk_off.data_ptr(), chunk_cnt.data_ptr(),
                 blk_start.data_ptr(), limit.data_ptr(), bmf.data_ptr(),
-                symbols.data_ptr(), out.data_ptr(), B, C, _build.stream_of(flat),
+                symbols.data_ptr(), out.data_ptr(), B, C, arity, _build.stream_of(flat),
             )
         _build.check(rc, "huffman_decode")
         decode_chunks.launches += 1

@@ -1,22 +1,30 @@
-"""Huffman chunk encode, n = 2 (kernels: ``csrc/huffman_encode.cu``).
+"""Huffman chunk encode, n = 2, 3 and 16 (kernels: ``csrc/huffman_encode.cu``).
 
 For each block of ``blocks`` [B, S], chunk k holds symbols
-[k*C, (k+1)*C) of the block's valid prefix; each chunk is a byte-aligned
-bit stream (stream digit j = bit j&7 of byte j>>3).  Two output layouts:
+[k*C, (k+1)*C) of the block's valid prefix.  Each chunk is a
+byte-aligned stream of base-n digits, D = ARITY_DIGITS_PER_BYTE[n] to a
+byte, little-endian: byte = sum of digit[D*j + i] * n**i (8 bits at n=2,
+two nybbles, low first, at n=16, five trits at n=3), the last byte
+zero-padded.  Its wire bytes are ceil(digits / D).
+
+``dense`` is ``huffman.batched.encode_tensors``'s layout: [B, 256]
+entries ``digits << PACKED_LEN_SHIFT[n] | code`` at n = 2 (shift 15)
+and n = 16 (shift 28), or [B, 512] at n = 3 (codes in [:, :256], field
+bits in [:, 256:]); a code holds its stream digit m in bit field m of
+``BITS_PER_DIGIT[n]`` bits.  Two output layouts:
 
 ``encode_blocks`` replaces ``data_compression_tpu/ops/pallas/
 encode_kernel.py`` ``_encode_pallas_compact``: the chunks of a block lie
 back to back in ``rows[b]``.
-  rows [B, S/C * max_chunk_bytes(C, 2)] uint8 — bytes past
+  rows [B, S/C * max_chunk_bytes(C, n)] uint8 — bytes past
       ``block_bytes[b]`` are undefined;
-  digits [B, S/C] int32 — code digits per chunk (its wire bytes are
-      ceil(digits / 8));
+  digits [B, S/C] int32 — code digits per chunk;
   block_bytes [B] int32 — payload bytes of each block.
 
 ``encode_chunk_rows`` replaces ``_encode_pallas``: chunk k of block b has
 a fixed-stride row of its own, ``b*S/C + k``.
-  rows [B*S/C, max_chunk_bytes(C, 2)] uint8 — bytes past
-      ceil(digits / 8) of each row are undefined;
+  rows [B*S/C, max_chunk_bytes(C, n)] uint8 — bytes past
+      ceil(digits / D) of each row are undefined;
   digits [B*S/C] int32.
 """
 
@@ -24,15 +32,23 @@ from __future__ import annotations
 
 import torch
 
-from data_compression_tpu_torch.config import ARITY_MAX_LEN, max_chunk_bytes
-from data_compression_tpu_torch.huffman.batched import PACKED_LEN_SHIFT
+from data_compression_tpu_torch.config import (
+    ARITY_DIGITS_PER_BYTE,
+    ARITY_MAX_LEN,
+    max_chunk_bytes,
+    wire_bytes,
+)
+from data_compression_tpu_torch.huffman.batched import BITS_PER_DIGIT, PACKED_LEN_SHIFT
 from data_compression_tpu_torch.ops.kernels import _build
 
-_SHIFT = PACKED_LEN_SHIFT[2]
-_L = ARITY_MAX_LEN[2]
+# digit-count field of a packed entry: 4 bits at n=2, 3 at n=16
+_LEN_MASK = {2: 0xF, 16: 0x7}
+_DENSE_WIDTH = {2: 256, 3: 512, 16: 256}
 
 
-def _check(blocks, raw_lens, dense, chunk_syms):
+def _check(blocks, raw_lens, dense, chunk_syms, arity):
+    if arity not in _DENSE_WIDTH:
+        raise ValueError(f"no encode kernel for arity {arity}")
     if blocks.dtype != torch.uint8 or blocks.dim() != 2:
         raise ValueError(f"blocks must be [B, S] uint8, got {blocks.dtype} {tuple(blocks.shape)}")
     B, S = blocks.shape
@@ -41,61 +57,78 @@ def _check(blocks, raw_lens, dense, chunk_syms):
         raise ValueError(f"chunk_syms {C} must be a power of two >= 16 dividing {S}")
     if raw_lens.dtype != torch.int32 or tuple(raw_lens.shape) != (B,):
         raise ValueError(f"raw_lens must be [{B}] int32")
-    if dense.dtype != torch.int32 or tuple(dense.shape) != (B, 256):
-        raise ValueError(f"dense must be [{B}, 256] int32")
+    w = _DENSE_WIDTH[arity]
+    if dense.dtype != torch.int32 or tuple(dense.shape) != (B, w):
+        raise ValueError(f"dense must be [{B}, {w}] int32 at arity {arity}")
     return B, S, C, S // C
 
 
-def _symbol_codes(blocks, raw_lens, dense, C):
+def _symbol_codes(blocks, raw_lens, dense, C, arity):
     """Per symbol: digit count [B, S/C, C] (0 past the valid length) and
-    code [B, S], both int64 (torch's >> on int32 is arithmetic)."""
+    field-packed code [B, S], both int64 (torch's >> on int32 is
+    arithmetic)."""
     B, S = blocks.shape
-    ent = torch.gather(dense.to(torch.int64), 1, blocks.to(torch.int64))
+    idx = blocks.to(torch.int64)
+    dense = dense.to(torch.int64)
+    if arity == 3:
+        code = torch.gather(dense[:, :256], 1, idx)
+        nd = (torch.gather(dense[:, 256:], 1, idx) >> 1) & 0xF
+    else:
+        sh = PACKED_LEN_SHIFT[arity]
+        ent = torch.gather(dense, 1, idx)
+        code = ent & ((1 << sh) - 1)
+        nd = (ent >> sh) & _LEN_MASK[arity]
     valid = torch.arange(S, device=blocks.device)[None, :] < raw_lens.to(torch.int64)[:, None]
-    nd = torch.where(valid, (ent >> _SHIFT) & 0xF, 0).view(B, S // C, C)
-    return nd, ent & ((1 << _SHIFT) - 1)
+    return torch.where(valid, nd, 0).view(B, S // C, C), code
 
 
-def _scatter_bits(code, nd, row, sym_bit, shape):
+def _scatter_digits(code, nd, row, sym_digit, shape, arity):
     """Bytes [rows, width] with digit m of each symbol's code at stream
-    bit ``sym_bit + m`` of its row (bit j = bit j&7 of byte j>>3)."""
+    digit ``sym_digit + m`` of its row (digit j is digit j % D of byte
+    j // D, weight n**(j % D))."""
     nrows, width = shape
-    bits = torch.zeros((nrows, width * 8), dtype=torch.uint8, device=code.device)
-    for m in range(_L):
+    D = ARITY_DIGITS_PER_BYTE[arity]
+    bpd = BITS_PER_DIGIT[arity]
+    digits = torch.zeros((nrows, width * D), dtype=torch.uint8, device=code.device)
+    for m in range(ARITY_MAX_LEN[arity]):
         sel = m < nd
-        bits[row[sel], (sym_bit + m)[sel]] = ((code >> m) & 1)[sel].to(torch.uint8)
-    planes = bits.view(nrows, width, 8)
-    out = torch.zeros((nrows, width), dtype=torch.uint8, device=code.device)
-    for i in range(8):
-        out |= planes[:, :, i] << i
-    return out
+        digits[row[sel], (sym_digit + m)[sel]] = (
+            (code >> (m * bpd)) & ((1 << bpd) - 1)
+        )[sel].to(torch.uint8)
+    planes = digits.view(nrows, width, D)
+    out = torch.zeros((nrows, width), dtype=torch.int32, device=code.device)
+    for i in range(D):
+        out += planes[:, :, i].to(torch.int32) * arity**i
+    return (out & 0xFF).to(torch.uint8)
 
 
-def encode_blocks_ref(blocks, raw_lens, dense, chunk_syms):
-    """Plain PyTorch version (any device): per-symbol bit offsets by
-    cumsum, bits scattered into a bit array, then packed to bytes."""
-    B, S, C, ncb = _check(blocks, raw_lens, dense, chunk_syms)
-    nd, code = _symbol_codes(blocks, raw_lens, dense, C)
+def encode_blocks_ref(blocks, raw_lens, dense, chunk_syms, arity=2):
+    """Plain PyTorch version (any device): per-symbol digit offsets by
+    cumsum, digits scattered into a digit array, then D digits packed
+    to each byte."""
+    B, S, C, ncb = _check(blocks, raw_lens, dense, chunk_syms, arity)
+    nd, code = _symbol_codes(blocks, raw_lens, dense, C, arity)
     digits = nd.sum(-1)  # [B, ncb]
-    nbytes = (digits + 7) // 8
+    nbytes = wire_bytes(digits, arity)
     chunk_start = torch.cumsum(nbytes, 1) - nbytes  # byte offset in the row
-    sym_bit = ((chunk_start * 8)[:, :, None] + torch.cumsum(nd, -1) - nd).view(B, S)
+    D = ARITY_DIGITS_PER_BYTE[arity]
+    sym_digit = ((chunk_start * D)[:, :, None] + torch.cumsum(nd, -1) - nd).view(B, S)
     row = torch.arange(B, device=blocks.device)[:, None].expand(B, S)
-    rows = _scatter_bits(code, nd.view(B, S), row, sym_bit,
-                         (B, ncb * max_chunk_bytes(C, 2)))
+    rows = _scatter_digits(code, nd.view(B, S), row, sym_digit,
+                           (B, ncb * max_chunk_bytes(C, arity)), arity)
     return rows, digits.to(torch.int32), nbytes.sum(1).to(torch.int32)
 
 
-def encode_chunk_rows_ref(blocks, raw_lens, dense, chunk_syms):
+def encode_chunk_rows_ref(blocks, raw_lens, dense, chunk_syms, arity=2):
     """Plain PyTorch version (any device) of ``encode_chunk_rows``: the
-    bit scatter of ``encode_blocks_ref`` with one fixed-stride row per
-    chunk, so each symbol's bit offset is its in-chunk digit cumsum."""
-    B, S, C, ncb = _check(blocks, raw_lens, dense, chunk_syms)
-    nd, code = _symbol_codes(blocks, raw_lens, dense, C)
-    sym_bit = (torch.cumsum(nd, -1) - nd).view(B, S)
+    digit scatter of ``encode_blocks_ref`` with one fixed-stride row per
+    chunk, so each symbol's digit offset is its in-chunk digit cumsum."""
+    B, S, C, ncb = _check(blocks, raw_lens, dense, chunk_syms, arity)
+    nd, code = _symbol_codes(blocks, raw_lens, dense, C, arity)
+    sym_digit = (torch.cumsum(nd, -1) - nd).view(B, S)
     row = torch.arange(B * ncb, device=blocks.device).view(B, ncb, 1).expand(B, ncb, C)
-    rows = _scatter_bits(code, nd.view(B, S), row.reshape(B, S), sym_bit,
-                         (B * ncb, max_chunk_bytes(C, 2)))
+    rows = _scatter_digits(code, nd.view(B, S), row.reshape(B, S), sym_digit,
+                           (B * ncb, max_chunk_bytes(C, arity)), arity)
     return rows, nd.sum(-1).view(B * ncb).to(torch.int32)
 
 
@@ -105,14 +138,14 @@ def _require_kernel_inputs(blocks, raw_lens, dense):
         raise ValueError("blocks must be 16-byte aligned")
 
 
-def encode_blocks(blocks, raw_lens, dense, chunk_syms):
+def encode_blocks(blocks, raw_lens, dense, chunk_syms, arity=2):
     """Encode on the tensors' device: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors.  -> (rows, digits, block_bytes)."""
     if blocks.device.type == "cpu":
-        return encode_blocks_ref(blocks, raw_lens, dense, chunk_syms)
-    B, S, C, ncb = _check(blocks, raw_lens, dense, chunk_syms)
+        return encode_blocks_ref(blocks, raw_lens, dense, chunk_syms, arity)
+    B, S, C, ncb = _check(blocks, raw_lens, dense, chunk_syms, arity)
     _require_kernel_inputs(blocks, raw_lens, dense)
-    row_cap = ncb * max_chunk_bytes(C, 2)
+    row_cap = ncb * max_chunk_bytes(C, arity)
     if row_cap >= 2**31:
         raise ValueError(f"block of {S} symbols too large for the encode kernel")
     dev = blocks.device
@@ -124,7 +157,7 @@ def encode_blocks(blocks, raw_lens, dense, chunk_syms):
             rc = _build.lib().dct_huffman_encode(
                 blocks.data_ptr(), raw_lens.data_ptr(), dense.data_ptr(),
                 rows.data_ptr(), digits.data_ptr(), block_bytes.data_ptr(),
-                B, S, C, row_cap, _build.stream_of(blocks),
+                B, S, C, row_cap, arity, _build.stream_of(blocks),
             )
         _build.check(rc, "huffman_encode")
         encode_blocks.launches += 1
@@ -134,14 +167,14 @@ def encode_blocks(blocks, raw_lens, dense, chunk_syms):
 encode_blocks.launches = 0
 
 
-def encode_chunk_rows(blocks, raw_lens, dense, chunk_syms):
+def encode_chunk_rows(blocks, raw_lens, dense, chunk_syms, arity=2):
     """Per-chunk-row encode on the tensors' device: the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors.  -> (rows, digits)."""
     if blocks.device.type == "cpu":
-        return encode_chunk_rows_ref(blocks, raw_lens, dense, chunk_syms)
-    B, S, C, ncb = _check(blocks, raw_lens, dense, chunk_syms)
+        return encode_chunk_rows_ref(blocks, raw_lens, dense, chunk_syms, arity)
+    B, S, C, ncb = _check(blocks, raw_lens, dense, chunk_syms, arity)
     _require_kernel_inputs(blocks, raw_lens, dense)
-    mb = max_chunk_bytes(C, 2)
+    mb = max_chunk_bytes(C, arity)
     dev = blocks.device
     rows = torch.empty((B * ncb, mb), dtype=torch.uint8, device=dev)
     digits = torch.empty((B * ncb,), dtype=torch.int32, device=dev)
@@ -149,7 +182,7 @@ def encode_chunk_rows(blocks, raw_lens, dense, chunk_syms):
         with torch.cuda.device(dev):
             rc = _build.lib().dct_huffman_encode_rows(
                 blocks.data_ptr(), raw_lens.data_ptr(), dense.data_ptr(),
-                rows.data_ptr(), digits.data_ptr(), B, S, C, mb,
+                rows.data_ptr(), digits.data_ptr(), B, S, C, mb, arity,
                 _build.stream_of(blocks),
             )
         _build.check(rc, "huffman_encode_rows")

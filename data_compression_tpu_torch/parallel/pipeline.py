@@ -24,6 +24,12 @@ raises on every rank before any collective), decodes its contiguous
 share of the coded blocks with the decode kernel, all-gathers the
 symbols and checks every block's CRC.
 
+Arities outside FAST_ARITIES have no kernel, as in the JAX package:
+``compress_sharded`` raises KeyError for them, as the JAX package's does
+(its sharded encode looks up a bit-field width they lack), and
+``decompress_sharded`` decodes them on the host path on every rank, with
+no collective.
+
 The JAX package's XLA steps (``make_sharded_encode_step`` /
 ``make_sharded_decode_step``) and its ``use_pallas`` switch are not
 carried over: the port has one route per device, the kernels on CUDA
@@ -40,7 +46,9 @@ import torch.distributed as dist
 
 from data_compression_tpu_torch import framing
 from data_compression_tpu_torch.api import BytesLike, _as_bytes, pack_blocks
-from data_compression_tpu_torch.config import CodecConfig, max_chunk_bytes
+from data_compression_tpu_torch.config import (
+    FAST_ARITIES, CodecConfig, max_chunk_bytes, wire_bytes,
+)
 from data_compression_tpu_torch.huffman import batched as hb
 from data_compression_tpu_torch.models.base import EncodeResult
 from data_compression_tpu_torch.models.huffman import HuffmanCodec, capped_lengths
@@ -110,6 +118,9 @@ def compress_sharded(data: BytesLike, config: CodecConfig,
     if B_real == 0:
         # as the JAX package's sharded frame: no chunk size in the header
         return framing.pack_frame(config.codec_id, config.arity, S, 0, [], [], [], [])
+    if config.arity not in FAST_ARITIES:
+        raise KeyError(f"no sharded encode for huffman arity {config.arity}: it has no "
+                       f"bit-field wire packing (arities {FAST_ARITIES} do)")
     blocks, lengths = _pad_blocks(blocks, lengths, mesh.world_size)
     per = blocks.shape[0] // mesh.world_size
     lo = mesh.rank * per
@@ -118,13 +129,13 @@ def compress_sharded(data: BytesLike, config: CodecConfig,
     table_lengths = _table_lengths(mesh, config, dev_blocks, dev_lens)
     local = hb.codes_batch(table_lengths[lo : lo + per], config.arity)
     dense = hb.encode_tensors(local, mesh.device)["dense"]
-    rows, digits = kencode.encode_chunk_rows(dev_blocks, dev_lens, dense, C)
+    rows, digits = kencode.encode_chunk_rows(dev_blocks, dev_lens, dense, C, config.arity)
     digits = _all_gather(digits, mesh)
     rows = _all_gather(rows, mesh)
 
     # rows past a chunk's wire bytes are undefined: keep the valid bytes,
     # in chunk order (padded blocks have none)
-    nbytes = (digits.to(torch.int64) + 7) // 8
+    nbytes = wire_bytes(digits.to(torch.int64), config.arity)
     keep = torch.arange(mb, device=rows.device)[None, :] < nbytes[:, None]
     flat = rows[keep].cpu().numpy()
     nb = nbytes.view(-1, ncb)[:B_real].cpu().numpy()
@@ -156,6 +167,7 @@ def _decode_share(codec: HuffmanCodec, mesh: Mesh, payloads, raw_lens,
         bmf=args["bmf"][b0:b1],
         symbols=args["symbols"][b0:b1],
         chunk_syms=C,
+        arity=args["arity"],
     )
     # chunk j of local block i goes to row i, symbols [j*C, (j+1)*C)
     blk = np.repeat(np.arange(b1 - b0), n_real[b0:b1])
@@ -183,11 +195,13 @@ def decompress_sharded(data: BytesLike, config: Optional[CodecConfig] = None,
     entries = frame.entries
     out = [frame.payloads[i] if e.is_literal else None for i, e in enumerate(entries)]
     coded = [i for i, e in enumerate(entries) if not e.is_literal]
-    if coded:
-        syms = _decode_share(
-            codec, mesh, [frame.payloads[i] for i in coded],
-            [entries[i].raw_len for i in coded], frame.shared_table,
-        )
+    payloads = [frame.payloads[i] for i in coded]
+    raw_lens = [entries[i].raw_len for i in coded]
+    if coded and frame.arity not in FAST_ARITIES:
+        for i, blk in zip(coded, codec.decode_blocks(payloads, raw_lens, frame.shared_table)):
+            out[i] = blk
+    elif coded:
+        syms = _decode_share(codec, mesh, payloads, raw_lens, frame.shared_table)
         for k, i in enumerate(coded):
             out[i] = syms[k, : entries[i].raw_len].tobytes()
     for i, e in enumerate(entries):

@@ -55,3 +55,23 @@ def deep_code_block(size: int, seed: int) -> bytes:
     data = np.repeat(np.arange(len(w), dtype=np.uint8), w)
     order = np.argsort(_raw(seed, size), kind="stable")
     return data[order].tobytes()
+
+
+def complete_lengths(arity: int, max_len: int, n_symbols: int) -> np.ndarray:
+    """A Kraft-complete [256] int32 code-length row that reaches
+    ``max_len`` digits: a chain with n-1 leaves at each depth below
+    ``max_len`` and n at ``max_len``, then the shallowest leaf split into
+    n until ``n_symbols`` symbols (0 .. n_symbols-1) are used.  A complete
+    tree's last limit is exactly n**max_len; ``n_symbols`` must be
+    1 + a multiple of n-1, at least the chain's."""
+    n = arity
+    lengths = [d for d in range(1, max_len) for _ in range(n - 1)] + [max_len] * n
+    if n_symbols > 256 or n_symbols < len(lengths) or (n_symbols - 1) % (n - 1):
+        raise ValueError(f"no complete {n}-ary tree of depth {max_len} with {n_symbols} leaves")
+    while len(lengths) < n_symbols:
+        d = min(lengths)
+        lengths.remove(d)
+        lengths += [d + 1] * n
+    row = np.zeros(256, np.int32)
+    row[:n_symbols] = sorted(lengths)
+    return row

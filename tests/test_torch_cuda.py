@@ -13,6 +13,8 @@ import torch
 
 import data_compression_tpu_torch as pt
 from data_compression_tpu_torch import framing
+from data_compression_tpu_torch.config import ARITY_MAX_LEN, wire_bytes
+from data_compression_tpu_torch.huffman import batched as hb
 from data_compression_tpu_torch.huffman.batched import to_device
 from data_compression_tpu_torch.models.huffman import HuffmanCodec
 from data_compression_tpu_torch.ops.kernels import compact as kcmp
@@ -20,9 +22,10 @@ from data_compression_tpu_torch.ops.kernels import decode as kdec
 from data_compression_tpu_torch.ops.kernels import encode as kenc
 from data_compression_tpu_torch.parallel import compress_sharded, decompress_sharded, make_mesh
 from data_compression_tpu_torch.parallel import multihost
-from data_compression_tpu_torch.utils.corpora import deep_code_block, enwik_like
+from data_compression_tpu_torch.utils.corpora import complete_lengths, deep_code_block, enwik_like
 
 pytestmark = pytest.mark.cuda
+ARITIES = [2, 16, 3]
 
 
 @pytest.fixture
@@ -37,17 +40,30 @@ def _data():
     return enwik_like(7 * 65536, 61) + deep_code_block(65536, 62) + enwik_like(3000, 63)
 
 
+def _deep_tables(codec, dev_blocks, dev_lens, n):
+    """The blocks' tables, with block 7's replaced at n = 3 and 16 by a
+    complete tree that reaches the length cap (the deep-code block does
+    so by itself only at n = 2)."""
+    tb, _ = codec.tables(dev_blocks, dev_lens)
+    if n != 2:
+        lengths = tb.lengths.copy()
+        lengths[7] = complete_lengths(n, ARITY_MAX_LEN[n], 256 if n == 16 else 255)
+        tb = hb.codes_batch(lengths, n)
+    return tb
+
+
+@pytest.mark.parametrize("n", ARITIES)
 @pytest.mark.parametrize("chunk_syms", [512, 128])
-def test_kernels_match_plain_versions(cuda, chunk_syms):
-    cfg = pt.CodecConfig(chunk_syms=chunk_syms)
+def test_kernels_match_plain_versions(cuda, chunk_syms, n):
+    cfg = pt.CodecConfig(arity=n, chunk_syms=chunk_syms)
     codec = HuffmanCodec(cfg, cuda)
     blocks, lengths = framing.split_blocks(_data(), cfg.block_size)
     dev_blocks, dev_lens = codec.upload_blocks(blocks, lengths)
-    tb, _ = codec.tables(dev_blocks, dev_lens)
+    tb = _deep_tables(codec, dev_blocks, dev_lens, n)
     dense = to_device(tb, cuda)["dense"]
 
-    rows, digits, bb = kenc.encode_blocks(dev_blocks, dev_lens, dense, chunk_syms)
-    rows_r, digits_r, bb_r = kenc.encode_blocks_ref(dev_blocks, dev_lens, dense, chunk_syms)
+    rows, digits, bb = kenc.encode_blocks(dev_blocks, dev_lens, dense, chunk_syms, n)
+    rows_r, digits_r, bb_r = kenc.encode_blocks_ref(dev_blocks, dev_lens, dense, chunk_syms, n)
     assert torch.equal(digits, digits_r) and torch.equal(bb, bb_r)
     valid = torch.arange(rows.shape[1], device=cuda)[None, :] < bb[:, None].long()
     assert torch.equal(rows[valid], rows_r[valid])
@@ -65,10 +81,11 @@ def test_kernels_match_plain_versions(cuda, chunk_syms):
     assert torch.equal(out[valid], out_r[valid])
 
 
+@pytest.mark.parametrize("n", ARITIES)
 @pytest.mark.parametrize("shared", [False, True])
-def test_slice_on_cuda_matches_cpu(cuda, shared):
+def test_slice_on_cuda_matches_cpu(cuda, shared, n):
     x = _data()
-    cfg = pt.CodecConfig(shared_table=shared)
+    cfg = pt.CodecConfig(arity=n, shared_table=shared)
     counts = [f.launches for f in (kenc.encode_blocks, kcmp.compact_blocks, kdec.decode_chunks)]
     frame = pt.compress(x, cfg, device=cuda)
     assert frame == pt.compress(x, cfg, device="cpu")
@@ -77,26 +94,62 @@ def test_slice_on_cuda_matches_cpu(cuda, shared):
     assert all(a > c for a, c in zip(after, counts))
 
 
+@pytest.mark.parametrize("n", ARITIES)
 @pytest.mark.parametrize("chunk_syms", [512, 1024, 16])
-def test_rows_kernel_matches_plain_version(cuda, chunk_syms):
+def test_rows_kernel_matches_plain_version(cuda, chunk_syms, n):
     """Per-chunk rows: equal digits and equal valid bytes, with chunk 0
-    of the deep-code block made of 15-digit symbols so its row is full."""
-    cfg = pt.CodecConfig(chunk_syms=chunk_syms)
+    of block 7 made of L-digit symbols so its row is full."""
+    cfg = pt.CodecConfig(arity=n, chunk_syms=chunk_syms)
     codec = HuffmanCodec(cfg, cuda)
     blocks, lengths = framing.split_blocks(_data(), cfg.block_size)
     dev_blocks, dev_lens = codec.upload_blocks(blocks, lengths)
-    tb, _ = codec.tables(dev_blocks, dev_lens)
+    tb = _deep_tables(codec, dev_blocks, dev_lens, n)
     dense = to_device(tb, cuda)["dense"]
-    deep = torch.nonzero(((dense[7] >> 15) & 0xF) == 15).flatten().to(torch.uint8)
+    L = ARITY_MAX_LEN[n]
+    deep = torch.from_numpy(np.flatnonzero(tb.lengths[7] == L).astype(np.uint8)).to(cuda)
     dev_blocks[7, :chunk_syms] = deep[torch.arange(chunk_syms, device=cuda) % deep.numel()]
     before = kenc.encode_chunk_rows.launches
-    rows, digits = kenc.encode_chunk_rows(dev_blocks, dev_lens, dense, chunk_syms)
+    rows, digits = kenc.encode_chunk_rows(dev_blocks, dev_lens, dense, chunk_syms, n)
     assert kenc.encode_chunk_rows.launches == before + 1
-    rows_r, digits_r = kenc.encode_chunk_rows_ref(dev_blocks, dev_lens, dense, chunk_syms)
+    rows_r, digits_r = kenc.encode_chunk_rows_ref(dev_blocks, dev_lens, dense, chunk_syms, n)
     assert torch.equal(digits, digits_r)
-    assert int(digits.max()) == 15 * chunk_syms
-    valid = torch.arange(rows.shape[1], device=cuda)[None, :] < (digits[:, None].long() + 7) // 8
+    assert int(digits.max()) == L * chunk_syms
+    valid = torch.arange(rows.shape[1], device=cuda)[None, :] < wire_bytes(digits[:, None].long(), n)
     assert torch.equal(rows[valid], rows_r[valid])
+
+
+@pytest.mark.parametrize("n", [16, 3])
+def test_decode_kernel_complete_tree_and_random_bytes(cuda, n):
+    """The decode kernel reads the encode kernel's payloads, with block 7
+    coded by a complete tree at the length cap (n = 3: last limit exactly
+    3^15, kept in value space) and its chunk 0 all L-digit codes; on
+    random payload bytes (n = 3: bytes 243..255 too) it stays in bounds
+    and agrees with its plain version."""
+    cfg = pt.CodecConfig(arity=n)
+    C = cfg.chunk_syms
+    codec = HuffmanCodec(cfg, cuda)
+    blocks, lengths = framing.split_blocks(_data(), cfg.block_size)
+    dev_blocks, dev_lens = codec.upload_blocks(blocks, lengths)
+    tb = _deep_tables(codec, dev_blocks, dev_lens, n)
+    deep = torch.from_numpy(np.flatnonzero(tb.lengths[7] == ARITY_MAX_LEN[n]).astype(np.uint8))
+    dev_blocks[7, :C] = deep.to(cuda)[torch.arange(C, device=cuda) % deep.numel()]
+    dense = to_device(tb, cuda)["dense"]
+    rows, digits, bb = kenc.encode_blocks(dev_blocks, dev_lens, dense, C, n)
+    flat = kcmp.compact_blocks(rows, bb).cpu().numpy()
+    nb = wire_bytes(digits.cpu().numpy().astype(np.int64), n)
+    payloads = codec._assemble_payloads(flat, nb, lengths, tb.table_bytes())
+    args, _ = codec.decode_inputs(payloads, lengths, None)
+    assert int(args["limit"][7, -1]) == n ** ARITY_MAX_LEN[n]
+    out = kdec.decode_chunks(**args)
+    valid = torch.arange(C, device=cuda)[None, :] < args["chunk_cnt"][:, None]
+    inside = torch.arange(dev_blocks.shape[1], device=cuda)[None, :] < dev_lens[:, None]
+    assert torch.equal(out[valid], dev_blocks[inside])
+    assert torch.equal(out[valid], kdec.decode_chunks_ref(**args)[valid])
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    args["flat"] = torch.randint(0, 256, args["flat"].shape, dtype=torch.uint8,
+                                 device=cuda, generator=gen)
+    assert torch.equal(kdec.decode_chunks(**args)[valid], kdec.decode_chunks_ref(**args)[valid])
 
 
 def test_sharded_one_rank_nccl_matches_compress(cuda, tmp_path):
@@ -113,17 +166,29 @@ def test_sharded_one_rank_nccl_matches_compress(cuda, tmp_path):
         torch.distributed.destroy_process_group()
 
 
-def test_corrupt_frame_raises_on_cuda(cuda):
+def _outcome(stream, device):
+    try:
+        return pt.decompress(stream, device=device)
+    except ValueError:
+        return ValueError
+
+
+@pytest.mark.parametrize("n", ARITIES)
+def test_corrupt_frame_raises_on_cuda(cuda, n):
+    """Byte flips raise ValueError on cuda exactly where they do on the
+    CPU (at n = 3 a flip of padding trits alone decodes correctly)."""
     x = enwik_like(3 * 4096, 64)
-    cfg = pt.CodecConfig(block_size=4096, chunk_syms=512)
+    cfg = pt.CodecConfig(arity=n, block_size=4096, chunk_syms=512)
     stream = bytearray(pt.compress(x, cfg, device=cuda))
     rng = np.random.default_rng(9)
     body = len(stream) - sum(e.comp_len for e in framing.unpack_frame(bytes(stream)).entries)
     for pos in rng.integers(body, len(stream), 8):
         corrupt = bytearray(stream)
         corrupt[int(pos)] ^= 0xFF
-        with pytest.raises(ValueError):
-            pt.decompress(bytes(corrupt), device=cuda)
+        got = _outcome(bytes(corrupt), cuda)
+        assert got == _outcome(bytes(corrupt), "cpu")
+        if n != 3:
+            assert got is ValueError
 
 
 def test_wrappers_reject_bad_cuda_inputs(cuda):

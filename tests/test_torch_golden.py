@@ -1,6 +1,7 @@
-"""Golden wire hashes: the JAX package's frames of three seeded inputs,
-recorded in tests/data/torch_golden.json, recomputed here with the JAX
-package (so the record cannot rot) and with the port on the CPU.
+"""Golden wire hashes: the JAX package's frames of seeded inputs at
+Huffman arities 2, 16 and 3, recorded in tests/data/torch_golden.json,
+recomputed here with the JAX package (so the record cannot rot) and with
+the port on the CPU.
 ``chip_smoke.py`` checks the same hashes with the port on the GPU.
 Tolerance: exact (SHA-256 and length of the frame bytes).
 
@@ -20,10 +21,14 @@ from data_compression_tpu_torch.utils.corpora import deep_code_block, enwik_like
 GOLDEN = Path(__file__).parent / "data" / "torch_golden.json"
 
 CASES = [
-    # name, generator, size, seed, shared_table
-    ("enwik_1mib", "enwik_like", 1 << 20, 1, False),
-    ("deep_code_block", "deep_code_block", 64 * 1024, 2, False),
-    ("partial_tail_shared", "enwik_like", 200_000, 3, True),
+    # name, generator, size, seed, shared_table, arity
+    ("enwik_1mib", "enwik_like", 1 << 20, 1, False, 2),
+    ("deep_code_block", "deep_code_block", 64 * 1024, 2, False, 2),
+    ("partial_tail_shared", "enwik_like", 200_000, 3, True, 2),
+    ("enwik_1mib_n16", "enwik_like", 1 << 20, 4, False, 16),
+    ("partial_tail_shared_n16", "enwik_like", 200_000, 5, True, 16),
+    ("enwik_1mib_n3", "enwik_like", 1 << 20, 6, False, 3),
+    ("partial_tail_shared_n3", "enwik_like", 200_000, 7, True, 3),
 ]
 
 
@@ -31,18 +36,19 @@ def _input(gen, size, seed):
     return (enwik_like if gen == "enwik_like" else deep_code_block)(size, seed)
 
 
-def _jax_frame(x, shared):
-    return jx.compress(x, jx.CodecConfig(shared_table=shared, use_device=False))
+def _jax_frame(x, shared, arity):
+    return jx.compress(x, jx.CodecConfig(arity=arity, shared_table=shared, use_device=False))
 
 
 def _record():
     cases = []
-    for name, gen, size, seed, shared in CASES:
-        f = _jax_frame(_input(gen, size, seed), shared)
+    for name, gen, size, seed, shared, arity in CASES:
+        f = _jax_frame(_input(gen, size, seed), shared, arity)
         cases.append(dict(name=name, gen=gen, size=size, seed=seed,
-                          shared_table=shared, length=len(f),
+                          shared_table=shared, arity=arity, length=len(f),
                           sha256=hashlib.sha256(f).hexdigest()))
-    return {"config": "CodecConfig defaults (huffman, n=2, 64 KiB blocks, 512-symbol chunks)",
+    return {"config": "CodecConfig defaults (huffman, 64 KiB blocks, 512-symbol chunks) "
+                      "at each case's arity",
             "cases": cases}
 
 
@@ -50,20 +56,21 @@ def _golden():
     return {c["name"]: c for c in json.loads(GOLDEN.read_text())["cases"]}
 
 
-@pytest.mark.parametrize("name,gen,size,seed,shared", CASES, ids=[c[0] for c in CASES])
-def test_golden_hash_jax(name, gen, size, seed, shared):
+@pytest.mark.parametrize("name,gen,size,seed,shared,arity", CASES, ids=[c[0] for c in CASES])
+def test_golden_hash_jax(name, gen, size, seed, shared, arity):
     rec = _golden()[name]
-    assert (rec["gen"], rec["size"], rec["seed"], rec["shared_table"]) == (gen, size, seed, shared)
-    f = _jax_frame(_input(gen, size, seed), shared)
+    assert (rec["gen"], rec["size"], rec["seed"], rec["shared_table"], rec["arity"]) == (
+        gen, size, seed, shared, arity)
+    f = _jax_frame(_input(gen, size, seed), shared, arity)
     assert len(f) == rec["length"]
     assert hashlib.sha256(f).hexdigest() == rec["sha256"]
 
 
-@pytest.mark.parametrize("name,gen,size,seed,shared", CASES, ids=[c[0] for c in CASES])
-def test_golden_hash_port_cpu(name, gen, size, seed, shared):
+@pytest.mark.parametrize("name,gen,size,seed,shared,arity", CASES, ids=[c[0] for c in CASES])
+def test_golden_hash_port_cpu(name, gen, size, seed, shared, arity):
     rec = _golden()[name]
     x = _input(gen, size, seed)
-    f = pt.compress(x, pt.CodecConfig(shared_table=shared), device="cpu")
+    f = pt.compress(x, pt.CodecConfig(arity=arity, shared_table=shared), device="cpu")
     assert len(f) == rec["length"]
     assert hashlib.sha256(f).hexdigest() == rec["sha256"]
     assert pt.decompress(f, device="cpu") == x

@@ -129,8 +129,6 @@ def test_truncated_and_oversized_chunks_raise_value_error():
 
 def test_not_ported_paths_raise_not_implemented():
     with pytest.raises(NotImplementedError):
-        pt.compress(b"abc", pt.CodecConfig(arity=3), device="cpu")
-    with pytest.raises(NotImplementedError):
         pt.compress(b"abc", pt.CodecConfig(codec="nybble", chunk_syms=4096), device="cpu")
     nyb = jx.compress(b"hello hello hello", jx.CodecConfig(codec="nybble", use_device=False))
     with pytest.raises(NotImplementedError):
