@@ -30,13 +30,27 @@ script exits non-zero without a result line):
      collectives; the group is destroyed;
   6. wire parity: the frames of the golden inputs (n = 2, 16 and 3)
      must hash to the SHA-256 recorded from the JAX package, and decode
-     back.
+     back;
+  7. the profiling tools: the copy kernel against ``clone()`` on the
+     64 MiB input and each lookup-variant kernel against its plain
+     version at B = 128 (byte equality); at each arity the rows-encode
+     stages 1-2 and decode stages 1-3 observables against their
+     definitions from the plain full versions (exact); then
+     ``tools.ablate`` at 64 MiB per arity and ``tools.microbench``,
+     their JSON logged, with the launch count
+     of the copy kernel, every lookup variant, the rows-encode and the
+     decode kernel > 0.
 
 The line before the last is a JSON object of the kernels, one entry
 per kernel and arity (name, arity, route, source, the TPU kernel it
-replaces, launches in that arity's runs of phases 4 and 5, each counted
-from 0, max abs error against the plain version, ms per call, plain ms
-per call);
+replaces, launches in that arity's runs of phases 4 and 5, or for the
+tools' kernels in phase 7, each counted from 0, max abs error against
+the plain version, ms per call, plain ms per call, the bound: the
+bytes the call must move at 3.35 TB/s, and library ms, the time of one
+PyTorch call computing the same function, or null).  A time per call is
+the best of 3 trials of back-to-back calls, each at least 0.05 s
+(``tools.timing.time_chain``), the lookup variants' the median of
+single launches with the input cold in L2 (``tools.timing.cold_ms``);
 the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero
 without printing a result when no CUDA device is available or when the
 package is not beside this script.
@@ -47,7 +61,6 @@ from __future__ import annotations
 import hashlib
 import json
 import socket
-import subprocess
 import sys
 import time
 from contextlib import contextmanager
@@ -57,6 +70,9 @@ ROOT = Path(__file__).resolve().parent
 MIB = 1 << 20
 MAIN_BYTES = 64 * MIB
 SEED = 7
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+TRIAL_S = 0.05  # seconds per trial of every chain timing (timing.time_chain)
+COLD_REPS = 10  # HBM-cold launches per lookup-variant timing in phase 7
 
 KERNELS = [
     # (name, wrapper module, wrapper, plain version, source, TPU kernel it replaces)
@@ -73,7 +89,8 @@ KERNELS = [
      "data_compression_tpu_torch/csrc/huffman_encode.cu",
      "data_compression_tpu/ops/pallas/encode_kernel.py:433"),
 ]
-# the kernels each path runs: the single-device slice and the sharded pipeline
+# the kernels each path runs: the single-device slice and the sharded
+# pipeline; the profiling tools' own kernels are in tool_kernels()
 SLICE_KERNELS = ("huffman_encode", "compact", "huffman_decode")
 SHARDED_KERNELS = ("huffman_encode_rows", "huffman_decode")
 # Huffman arities with kernels, and the symbols of a complete tree at the
@@ -86,28 +103,23 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    r = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return r.stdout.strip().splitlines()[0]
+def chain_ms(fn, iters: int = 12) -> float:
+    """Best ms per call of ``fn`` launched back to back (``time_chain``,
+    trials of at least ``TRIAL_S``)."""
+    from data_compression_tpu_torch.tools import timing
+
+    return timing.time_chain(fn, iters=iters, min_trial_s=TRIAL_S) * 1e3
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean ms per call of ``fn`` by CUDA events, after one warm-up."""
-    import torch
+def tool_kernels():
+    """(name, source, TPU kernel it replaces) of the tools' kernels: the
+    copy kernel and one per lookup variant."""
+    from data_compression_tpu_torch.ops.kernels import microbench as kmb
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return [("copy", "data_compression_tpu_torch/csrc/copy.cu", "tools/ablate.py:149")] + [
+        (f"lookup_{v}", "data_compression_tpu_torch/csrc/microbench.cu", kmb.REPLACES[v])
+        for v in kmb.VARIANTS
+    ]
 
 
 def timed(fn):
@@ -123,6 +135,15 @@ def timed(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def bound_ms(nbytes: int) -> float:
+    """Least ms to move ``nbytes`` through device memory."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def max_abs_err(a, b, valid) -> int:
@@ -191,10 +212,13 @@ def kernel_phase(n: int, data: bytes, mods: dict, dev) -> dict:
     if not (torch.equal(digits, digits_r) and torch.equal(bb, bb_r)):
         raise AssertionError(f"encode n={n}: digit or byte counts differ from the plain version")
     valid = torch.arange(rows.shape[1], device=dev)[None, :] < bb[:, None].long()
+    raw = int(dev_lens.long().sum())  # symbol bytes the kernels read
     results["huffman_encode"] = dict(
         max_abs_err=max_abs_err(rows, rows_r, valid),
-        ms=cuda_ms(lambda: enc.encode_blocks(dev_blocks, dev_lens, dense, C, n), 20),
-        plain_ms=cuda_ms(lambda: enc.encode_blocks_ref(dev_blocks, dev_lens, dense, C, n), 3),
+        ms=chain_ms(lambda: enc.encode_blocks(dev_blocks, dev_lens, dense, C, n)),
+        plain_ms=chain_ms(lambda: enc.encode_blocks_ref(dev_blocks, dev_lens, dense, C, n), 1),
+        bound_ms=bound_ms(raw + nbytes_of(dev_lens, dense, digits, bb) + int(bb.long().sum())),
+        bound_by="bytes", library_ms=None,
     )
     del rows_r, digits_r, bb_r, valid
 
@@ -202,12 +226,16 @@ def kernel_phase(n: int, data: bytes, mods: dict, dev) -> dict:
     flat_r = cmp_.compact_blocks_ref(rows, bb)
     if flat.shape != flat_r.shape:
         raise AssertionError(f"compact n={n}: output sizes differ")
+    keep = torch.arange(rows.shape[1], device=dev)[None, :] < bb[:, None].long()
     results["compact"] = dict(
         max_abs_err=max_abs_err(flat, flat_r, torch.ones_like(flat, dtype=torch.bool)),
-        ms=cuda_ms(lambda: cmp_.compact_blocks(rows, bb), 20),
-        plain_ms=cuda_ms(lambda: cmp_.compact_blocks_ref(rows, bb), 3),
+        ms=chain_ms(lambda: cmp_.compact_blocks(rows, bb)),
+        plain_ms=chain_ms(lambda: cmp_.compact_blocks_ref(rows, bb), 1),
+        bound_ms=bound_ms(2 * flat.numel() + nbytes_of(bb)),
+        bound_by="bytes",
+        library_ms=chain_ms(lambda: torch.masked_select(rows, keep)),
     )
-    del rows, flat_r
+    del rows, flat_r, keep
 
     # decode the encoded payloads, parsed as decompress parses a frame
     nb = wire_bytes(digits.cpu().numpy().astype(np.int64), n)
@@ -218,8 +246,13 @@ def kernel_phase(n: int, data: bytes, mods: dict, dev) -> dict:
     valid = torch.arange(C, device=dev)[None, :] < args["chunk_cnt"][:, None]
     results["huffman_decode"] = dict(
         max_abs_err=max_abs_err(out, out_r, valid),
-        ms=cuda_ms(lambda: dec.decode_chunks(**args), 20),
-        plain_ms=cuda_ms(lambda: dec.decode_chunks_ref(**args), 2),
+        ms=chain_ms(lambda: dec.decode_chunks(**args)),
+        plain_ms=chain_ms(lambda: dec.decode_chunks_ref(**args), 1),
+        bound_ms=bound_ms(nbytes_of(*(args[k] for k in ("flat", "chunk_off", "chunk_cnt",
+                                                           "chunk_blk", "limit", "bmf",
+                                                           "symbols")))
+                          + int(args["chunk_cnt"].long().sum())),
+        bound_by="bytes", library_ms=None,
     )
     if not torch.equal(out[valid], torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)):
         raise AssertionError(f"decode n={n}: symbols differ from the input")
@@ -240,14 +273,66 @@ def kernel_phase(n: int, data: bytes, mods: dict, dev) -> dict:
     valid = torch.arange(rows.shape[1], device=dev)[None, :] < wire_bytes(digits[:, None].long(), n)
     results["huffman_encode_rows"] = dict(
         max_abs_err=max_abs_err(rows, rows_r, valid),
-        ms=cuda_ms(lambda: enc.encode_chunk_rows(rows_in, dev_lens, dense, C, n), 20),
-        plain_ms=cuda_ms(lambda: enc.encode_chunk_rows_ref(rows_in, dev_lens, dense, C, n), 3),
+        ms=chain_ms(lambda: enc.encode_chunk_rows(rows_in, dev_lens, dense, C, n)),
+        plain_ms=chain_ms(lambda: enc.encode_chunk_rows_ref(rows_in, dev_lens, dense, C, n), 1),
+        bound_ms=bound_ms(raw + nbytes_of(dev_lens, dense, digits)
+                          + int(wire_bytes(digits.long(), n).sum())),
+        bound_by="bytes", library_ms=None,
     )
     del rows, rows_r, digits, digits_r, valid, rows_in, dev_blocks
     torch.cuda.empty_cache()
     for name, r in results.items():
         log(f"kernel {name} n={n}: max_abs_err {r['max_abs_err']} "
-            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms")
+            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms"
+            + ("" if r["library_ms"] is None else f" library {r['library_ms']:.4f} ms"))
+    return results
+
+
+def tool_kernel_phase(data: bytes, dev) -> dict:
+    """The tools' kernels against their plain versions: the copy kernel
+    on the 64 MiB input, each lookup variant on the microbenchmark's
+    B = 128 inputs (HBM-cold times); -> {kernel: max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, library_ms}."""
+    import torch
+
+    from data_compression_tpu_torch.ops.kernels import copy as kcopy
+    from data_compression_tpu_torch.ops.kernels import microbench as kmb
+    from data_compression_tpu_torch.tools import microbench, timing
+
+    results = {}
+    x = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev).view(-1, 512, 128)
+    y = kcopy.copy_blocks(x)
+    everywhere = torch.ones_like(x, dtype=torch.bool)
+    err = max_abs_err(y, kcopy.copy_blocks_ref(x), everywhere)
+    max_abs_err(y, x, everywhere)
+    dst = torch.empty_like(x)
+    results["copy"] = dict(
+        max_abs_err=err,
+        ms=chain_ms(lambda: kcopy.copy_blocks(x)),
+        plain_ms=chain_ms(lambda: kcopy.copy_blocks_ref(x)),
+        bound_ms=bound_ms(2 * x.numel()), bound_by="bytes",
+        library_ms=chain_ms(lambda: dst.copy_(x)),
+    )
+    del x, y, dst, everywhere
+
+    s, tables = microbench.make_inputs(microbench.B, dev)
+    everywhere = torch.ones_like(s, dtype=torch.bool)
+    for name in kmb.VARIANTS:
+        t = tables[name]
+        got = kmb.lookup_variant(name, s, t)
+        err = max_abs_err(got, kmb.lookup_variant_ref(name, s, t), everywhere)
+        lib = microbench.library_call(name, s, t)
+        results[f"lookup_{name}"] = dict(
+            max_abs_err=err,
+            ms=timing.cold_ms(lambda: kmb.lookup_variant(name, s, t), COLD_REPS, dev),
+            plain_ms=timing.cold_ms(lambda: kmb.lookup_variant_ref(name, s, t), COLD_REPS, dev),
+            bound_ms=bound_ms(2 * s.numel() + microbench.table_bytes(t)), bound_by="bytes",
+            library_ms=None if lib is None else timing.cold_ms(lib, COLD_REPS, dev),
+        )
+    for name, r in results.items():
+        log(f"kernel {name}: max_abs_err {r['max_abs_err']} kernel {r['ms']:.4f} ms "
+            f"plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms"
+            + ("" if r["library_ms"] is None else f" library {r['library_ms']:.4f} ms"))
     return results
 
 
@@ -336,11 +421,11 @@ def sharded_phase(data: bytes, blobs: dict, card: str, count_launches) -> dict:
         syms = torch.empty((nblk, cfg.block_size), dtype=torch.uint8, device=dev)
         hist_sum = torch.empty((256,), dtype=torch.int64, device=dev)
         coll = {
-            "all_gather rows": cuda_ms(lambda: pipeline._all_gather(rows, mesh), 10),
-            "all_gather digits": cuda_ms(lambda: pipeline._all_gather(digits, mesh), 10),
-            "all_gather hists": cuda_ms(lambda: pipeline._all_gather(hists, mesh), 10),
-            "all_gather symbols": cuda_ms(lambda: pipeline._all_gather(syms, mesh), 10),
-            "all_reduce hist": cuda_ms(lambda: dist.all_reduce(hist_sum), 10),
+            "all_gather rows": chain_ms(lambda: pipeline._all_gather(rows, mesh)),
+            "all_gather digits": chain_ms(lambda: pipeline._all_gather(digits, mesh)),
+            "all_gather hists": chain_ms(lambda: pipeline._all_gather(hists, mesh)),
+            "all_gather symbols": chain_ms(lambda: pipeline._all_gather(syms, mesh)),
+            "all_reduce hist": chain_ms(lambda: dist.all_reduce(hist_sum)),
         }
         log("sharded collectives (1 NCCL rank, ms per call, CUDA events): "
             + ", ".join(f"{k} {v:.4f}" for k, v in coll.items()) + f"; card {card}")
@@ -368,10 +453,11 @@ def main() -> int:
 
     from data_compression_tpu_torch import CodecConfig, compress, decompress
     from data_compression_tpu_torch.ops.kernels import _build
+    from data_compression_tpu_torch.tools import timing
     from data_compression_tpu_torch.utils.corpora import deep_code_block, enwik_like
 
     # -- 1. the card
-    card = card_line()
+    card = timing.card()
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
@@ -386,9 +472,11 @@ def main() -> int:
     # -- 3. each kernel against its plain version at the main path's shapes
     data = enwik_like(MAIN_BYTES - 64 * 1024, SEED) + deep_code_block(64 * 1024, SEED)
     mods = {m: importlib.import_module(f"data_compression_tpu_torch.ops.kernels.{m}")
-            for _, m, *_ in KERNELS}
+            for m in {m for _, m, *_ in KERNELS} | {"copy", "microbench"}}
     results = {n: kernel_phase(n, data, mods, dev) for n in ARITIES}
     wrappers = {name: getattr(mods[m], w) for name, m, w, *_ in KERNELS}
+    wrappers["copy"] = mods["copy"].copy_blocks
+    wrappers.update({f"lookup_{v}": fn for v, fn in mods["microbench"].WRAPPERS.items()})
 
     def count_launches(path_kernels, run):
         """Run one path with every count at 0; -> (result, launches of
@@ -440,6 +528,28 @@ def main() -> int:
             raise AssertionError(f"golden {case['name']}: round trip failed")
         log(f"golden {case['name']}: sha256 and length match, round trip exact")
 
+    # -- 7. the profiling tools and their kernels
+    from data_compression_tpu_torch.tools import ablate, microbench
+
+    tool_results = tool_kernel_phase(data, dev)
+    for n in ARITIES:
+        errs = ablate.check_stages(ablate.prepare(data, n, dev))
+        torch.cuda.empty_cache()
+        log(f"stages n={n}: every observable equals its definition from the plain full "
+            f"versions (max abs err {errs})")
+
+    def tools_run():
+        reports = [ablate.run(n, MAIN_BYTES // MIB, dev, TRIAL_S) for n in ARITIES]
+        return reports, microbench.run(dev, COLD_REPS)
+
+    tools_path = [name for name, *_ in tool_kernels()] + list(SHARDED_KERNELS)
+    (reports, variants), tool_launches = count_launches(tools_path, tools_run)
+    for report in reports:
+        log(f"tools.ablate: {json.dumps(report)}")
+    for r in variants:
+        log(f"tools.microbench: {json.dumps(r)}")
+    log(f"tools launches {tool_launches}; card {card}")
+
     log(f"card: {card}")
     print(json.dumps({"kernels": [
         dict(name=name, arity=n, route="cuda", source=src, replaces=rep,
@@ -447,6 +557,10 @@ def main() -> int:
              **results[n][name])
         for n in ARITIES
         for name, _, _, _, src, rep in KERNELS
+    ] + [
+        dict(name=name, arity=None, route="cuda", source=src, replaces=rep,
+             launches=tool_launches[name], **tool_results[name])
+        for name, src, rep in tool_kernels()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -41,6 +41,20 @@
 // that: the block's limit, bmf and symbol tables live in shared memory;
 // the window refills a byte at a time from L1; output bytes are gathered
 // into 32-bit words so each store moves four symbols.
+//
+// `kStages` is the profiling ablation of the TPU kernel's `stages`.  The
+// TPU's stage 2 (boundary walk) is this loop's consumption of `ln` digits
+// and cannot be separated from the window, and its stage 3 (compaction)
+// has no counterpart, so the stages follow this loop.  Each is a prefix of
+// the full work and writes its observable, summed over the chunk, as a
+// little-endian int32 into bytes 0..3 of the chunk's output row (the rest
+// of the row is not written):
+//   1  window + length + walk (refill, limit compares, consume ln):
+//      sum of ln, the chunk's digit count;
+//   2  + rank: sum of the ranks;
+//   3  + rank -> symbol from s_sym: sum of the symbol bytes;
+//   4  the full kernel (symbols packed into words and stored), the only
+//      instantiation the library path runs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,7 +93,7 @@ __device__ __forceinline__ uint32_t digit_reversed(uint32_t byte) {
   }
 }
 
-template <int N>
+template <int N, int kStages>
 __global__ void __launch_bounds__(kThreads)
 huffman_decode_kernel(const uint8_t* __restrict__ flat,
                       const int64_t* __restrict__ chunk_off,
@@ -128,7 +142,22 @@ huffman_decode_kernel(const uint8_t* __restrict__ flat,
     uint8_t* o = out + k * static_cast<int64_t>(C);
 
     int64_t pos = 0;
-    uint32_t word = 0;
+    uint32_t word = 0;  // stage 4: four output symbols, stored together
+    uint32_t acc = 0;   // stages 1-3: the stage's observable, summed
+    // symbol i of the chunk has rank `rank`: the stages past the length
+    auto emit = [&](int i, uint32_t rank) {
+      if constexpr (kStages == 2) {
+        acc += rank;
+      } else if constexpr (kStages == 3) {
+        acc += s_sym[rank];
+      } else {
+        word |= static_cast<uint32_t>(s_sym[rank]) << ((i & 3) * 8);
+        if ((i & 3) == 3) {
+          *reinterpret_cast<uint32_t*>(o + (i - 3)) = word;
+          word = 0;
+        }
+      }
+    };
     if constexpr (N == 3) {
       uint32_t V = 0;  // pending trits, the next one most significant
       int nv = 0;
@@ -143,12 +172,12 @@ huffman_decode_kernel(const uint8_t* __restrict__ flat,
         int ln = 1;
 #pragma unroll
         for (int l = 1; l < kL; ++l) ln += W >= s_limit[l] ? 1 : 0;
-        const uint32_t rank =
-            static_cast<uint32_t>(s_bmf[ln] + static_cast<int32_t>(W / s_pow3[kL - ln])) & 0xFFu;
-        word |= static_cast<uint32_t>(s_sym[rank]) << ((i & 3) * 8);
-        if ((i & 3) == 3) {
-          *reinterpret_cast<uint32_t*>(o + (i - 3)) = word;
-          word = 0;
+        if constexpr (kStages == 1) {
+          acc += static_cast<uint32_t>(ln);
+        } else {
+          const uint32_t rank =
+              static_cast<uint32_t>(s_bmf[ln] + static_cast<int32_t>(W / s_pow3[kL - ln])) & 0xFFu;
+          emit(i, rank);
         }
         nv -= ln;
         V %= s_pow3[nv];
@@ -169,30 +198,49 @@ huffman_decode_kernel(const uint8_t* __restrict__ flat,
         int ln = 1;
 #pragma unroll
         for (int l = 1; l < kL; ++l) ln += W >= s_limit[l] ? 1 : 0;
-        const uint32_t rank = static_cast<uint32_t>(
-            s_bmf[ln] + static_cast<int32_t>(W >> (kBpd * (kL - ln)))) & 0xFFu;
-        word |= static_cast<uint32_t>(s_sym[rank]) << ((i & 3) * 8);
-        if ((i & 3) == 3) {
-          *reinterpret_cast<uint32_t*>(o + (i - 3)) = word;
-          word = 0;
+        if constexpr (kStages == 1) {
+          acc += static_cast<uint32_t>(ln);
+        } else {
+          const uint32_t rank = static_cast<uint32_t>(
+              s_bmf[ln] + static_cast<int32_t>(W >> (kBpd * (kL - ln)))) & 0xFFu;
+          emit(i, rank);
         }
         win <<= kBpd * ln;
         nbits -= kBpd * ln;
       }
     }
-    if (cnt & 3) *reinterpret_cast<uint32_t*>(o + (cnt & ~3)) = word;
+    if constexpr (kStages == 4) {
+      if (cnt & 3) *reinterpret_cast<uint32_t*>(o + (cnt & ~3)) = word;
+    } else {
+      *reinterpret_cast<uint32_t*>(o) = acc;  // bytes 0..3 of the row, little-endian
+    }
   }
 }
 
-template <int N>
+template <int N, int kStages>
 void launch(const void* flat, const void* chunk_off, const void* chunk_cnt,
             const void* blk_start, const void* limit, const void* bmf,
             const void* symbols, void* out, int B, int C, cudaStream_t stream) {
-  huffman_decode_kernel<N><<<B, kThreads, 0, stream>>>(
+  huffman_decode_kernel<N, kStages><<<B, kThreads, 0, stream>>>(
       static_cast<const uint8_t*>(flat), static_cast<const int64_t*>(chunk_off),
       static_cast<const int32_t*>(chunk_cnt), static_cast<const int64_t*>(blk_start),
       static_cast<const int32_t*>(limit), static_cast<const int32_t*>(bmf),
       static_cast<const int32_t*>(symbols), static_cast<uint8_t*>(out), C);
+}
+
+template <int N>
+cudaError_t launch_stages(const void* flat, const void* chunk_off, const void* chunk_cnt,
+                          const void* blk_start, const void* limit, const void* bmf,
+                          const void* symbols, void* out, int B, int C, int stages,
+                          cudaStream_t s) {
+  switch (stages) {
+    case 1: launch<N, 1>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, s); break;
+    case 2: launch<N, 2>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, s); break;
+    case 3: launch<N, 3>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, s); break;
+    case 4: launch<N, 4>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, s); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -201,15 +249,17 @@ extern "C" int dct_huffman_decode(const void* flat, const void* chunk_off,
                                   const void* chunk_cnt, const void* blk_start,
                                   const void* limit, const void* bmf,
                                   const void* symbols, void* out, int B, int C,
-                                  int arity, void* stream) {
+                                  int arity, int stages, void* stream) {
   if (B > 0) {
     const auto s = static_cast<cudaStream_t>(stream);
+    cudaError_t rc;
     switch (arity) {
-      case 2: launch<2>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, s); break;
-      case 3: launch<3>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, s); break;
-      case 16: launch<16>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, s); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
+      case 2: rc = launch_stages<2>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, stages, s); break;
+      case 3: rc = launch_stages<3>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, stages, s); break;
+      case 16: rc = launch_stages<16>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, stages, s); break;
+      default: rc = cudaErrorInvalidValue;
     }
+    if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,10 +52,22 @@
 // the compact kernel (a serial walk per thread), with one read of the
 // input instead of two.
 //
+// The rows kernel also takes `kStages`, the profiling ablation of the TPU
+// kernel's `stages` argument: each stage is a prefix of the full work and
+// writes an observable that the plain version determines, so no stage can
+// be optimised away and each can be checked:
+//   1  the table lookups only; digits[row] = the chunk's digit count;
+//   2  + the emitter's digit accumulation (Emitter::put and flush, at
+//      n = 3 its multiply and division by 243), whose store adds each
+//      wire byte to a 32-bit sum instead of writing it;
+//      digits[row] = the sum of the chunk's wire bytes;
+//   3  the full kernel, the only instantiation the library path runs.
+// `rows` are not written at stages < 3.
+//
 // Both kernels are templates on the arity, instantiated for 2, 3 and 16;
-// the C entry points dispatch on it.  Digit counts are masked to the
-// length field (<= ARITY_MAX_LEN), which keeps every chunk within
-// max_chunk_bytes even for a malformed table.
+// the C entry points dispatch on it (and on the stage).  Digit counts are
+// masked to the length field (<= ARITY_MAX_LEN), which keeps every chunk
+// within max_chunk_bytes even for a malformed table.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -238,7 +250,7 @@ huffman_encode_kernel(const uint8_t* __restrict__ blocks,
   }
 }
 
-template <int N>
+template <int N, int kStages>
 __global__ void __launch_bounds__(kThreads)
 huffman_encode_rows_kernel(const uint8_t* __restrict__ blocks,
                            const int32_t* __restrict__ raw_lens,
@@ -262,7 +274,14 @@ huffman_encode_rows_kernel(const uint8_t* __restrict__ blocks,
     const int64_t row = static_cast<int64_t>(b) * ncb + k;
     uint8_t* dst = rows + row * mb;
     int off = 0;  // at most mb: every length is masked to the length field
-    auto store = [&](uint8_t byte) { dst[off++] = byte; };
+    uint32_t wire_sum = 0;  // stage 2: the chunk's wire bytes, summed
+    auto store = [&](uint8_t byte) {
+      if constexpr (kStages >= 3) {
+        dst[off++] = byte;
+      } else {
+        wire_sum += byte;
+      }
+    };
     Emitter<N> em;
     uint32_t nd = 0;  // digits of the chunk
     for (int i = 0; i < cnt; i += 16) {
@@ -272,12 +291,12 @@ huffman_encode_rows_kernel(const uint8_t* __restrict__ blocks,
         if (i + j < cnt) {
           const uint32_t e = table[byte_of(v, j)];
           nd += digits_of<N>(e);
-          em.put(e, store);
+          if constexpr (kStages >= 2) em.put(e, store);
         }
       }
     }
-    em.flush(store);
-    digits[row] = static_cast<int32_t>(nd);
+    if constexpr (kStages >= 2) em.flush(store);
+    digits[row] = static_cast<int32_t>(kStages == 2 ? wire_sum : nd);
   }
 }
 
@@ -291,13 +310,26 @@ void launch_encode(const void* blocks, const void* raw_lens, const void* dense, 
       static_cast<int32_t*>(digits), static_cast<int32_t*>(block_bytes), S, C, row_cap);
 }
 
-template <int N>
+template <int N, int kStages>
 void launch_rows(const void* blocks, const void* raw_lens, const void* dense, void* rows,
                  void* digits, int B, int S, int C, int mb, cudaStream_t stream) {
-  huffman_encode_rows_kernel<N><<<B, kThreads, 0, stream>>>(
+  huffman_encode_rows_kernel<N, kStages><<<B, kThreads, 0, stream>>>(
       static_cast<const uint8_t*>(blocks), static_cast<const int32_t*>(raw_lens),
       static_cast<const int32_t*>(dense), static_cast<uint8_t*>(rows),
       static_cast<int32_t*>(digits), S, C, mb);
+}
+
+template <int N>
+cudaError_t launch_rows_stages(const void* blocks, const void* raw_lens, const void* dense,
+                               void* rows, void* digits, int B, int S, int C, int mb,
+                               int stages, cudaStream_t stream) {
+  switch (stages) {
+    case 1: launch_rows<N, 1>(blocks, raw_lens, dense, rows, digits, B, S, C, mb, stream); break;
+    case 2: launch_rows<N, 2>(blocks, raw_lens, dense, rows, digits, B, S, C, mb, stream); break;
+    case 3: launch_rows<N, 3>(blocks, raw_lens, dense, rows, digits, B, S, C, mb, stream); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -322,15 +354,17 @@ extern "C" int dct_huffman_encode(const void* blocks, const void* raw_lens,
 extern "C" int dct_huffman_encode_rows(const void* blocks, const void* raw_lens,
                                        const void* dense, void* rows, void* digits,
                                        int B, int S, int C, int mb, int arity,
-                                       void* stream) {
+                                       int stages, void* stream) {
   if (B > 0) {
     const auto s = static_cast<cudaStream_t>(stream);
+    cudaError_t rc;
     switch (arity) {
-      case 2: launch_rows<2>(blocks, raw_lens, dense, rows, digits, B, S, C, mb, s); break;
-      case 3: launch_rows<3>(blocks, raw_lens, dense, rows, digits, B, S, C, mb, s); break;
-      case 16: launch_rows<16>(blocks, raw_lens, dense, rows, digits, B, S, C, mb, s); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
+      case 2: rc = launch_rows_stages<2>(blocks, raw_lens, dense, rows, digits, B, S, C, mb, stages, s); break;
+      case 3: rc = launch_rows_stages<3>(blocks, raw_lens, dense, rows, digits, B, S, C, mb, stages, s); break;
+      case 16: rc = launch_rows_stages<16>(blocks, raw_lens, dense, rows, digits, B, S, C, mb, stages, s); break;
+      default: rc = cudaErrorInvalidValue;
     }
+    if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("huffman_encode.cu", "compact.cu", "huffman_decode.cu")
+SOURCES = ("huffman_encode.cu", "compact.cu", "huffman_decode.cu", "copy.cu", "microbench.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -44,9 +44,11 @@ _I64 = ctypes.c_longlong
 SIGNATURES = {
     # name: argtypes (every entry point returns a cudaError_t as int)
     "dct_huffman_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _I, _P],
-    "dct_huffman_encode_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "dct_huffman_encode_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dct_compact": [_P, _P, _P, _P, _I, _I64, _P],
-    "dct_huffman_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "dct_huffman_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dct_copy": [_P, _P, _I64, _P],
+    "dct_lookup": [_I, _P, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()

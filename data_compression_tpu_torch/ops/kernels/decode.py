@@ -16,6 +16,17 @@ Replaces ``data_compression_tpu/ops/pallas/decode_kernel.py``
 
 Output: [K, C] uint8, chunk k's symbols in row k; bytes past
 chunk_cnt[k] are undefined.
+
+``stages`` is ``_decode_pallas(stages=)``'s profiling ablation, in the
+port's own loop (the TPU's boundary walk is this loop's consumption of
+each code's digits, and its compaction has no counterpart).  At stages <
+4 bytes 0..3 of row k hold, little-endian, the chunk's sum (mod 2**32)
+of the stage's observable, read back by ``stage_sums``; the rest of the
+row is undefined:
+  1  window + length + walk: sum of the code lengths = the chunk's digits;
+  2  + rank: sum of the ranks (a symbol's index in ``symbols``);
+  3  + rank -> symbol: sum of the symbol bytes;
+  4  the full kernel (the library path).
 """
 
 from __future__ import annotations
@@ -26,6 +37,18 @@ from data_compression_tpu_torch.config import ARITY_DIGITS_PER_BYTE, ARITY_MAX_L
 from data_compression_tpu_torch.ops.kernels import _build
 
 _REF_BATCH = 32768  # chunks per step of the plain version (bounds memory)
+DECODE_STAGES = (1, 2, 3, 4)
+
+
+def _check_stages(stages):
+    if stages not in DECODE_STAGES:
+        raise ValueError(f"decode stages must be one of {DECODE_STAGES}, got {stages!r}")
+
+
+def stage_sums(out):
+    """[K] int64: the stage observables in bytes 0..3 (little-endian) of
+    each row of a stages < 4 decode output."""
+    return sum(out[:, i].to(torch.int64) << (8 * i) for i in range(4))
 
 
 def _check(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols, chunk_syms, arity):
@@ -52,24 +75,27 @@ def _check(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols, chunk_sym
 
 
 def decode_chunks_ref(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
-                      chunk_syms, arity=2):
+                      chunk_syms, arity=2, stages=4):
     """Plain PyTorch version (any device): the window / length / rank
     formulation of ``data_compression_tpu/ops/decode_fast.py`` (digits
     unpacked from each byte, the window a base-n Horner over L digits),
-    with a Python loop over digit positions for the boundary walk."""
+    with a Python loop over digit positions for the boundary walk.  At
+    stages < 4 the observables are summed over each chunk's codeword
+    starts; the rest of each row is 0."""
     K, B, C = _check(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
                      chunk_syms, arity)
+    _check_stages(stages)
     out = torch.zeros((K, C), dtype=torch.uint8, device=flat.device)
     for k0 in range(0, K, _REF_BATCH):
         k1 = min(K, k0 + _REF_BATCH)
         out[k0:k1] = _decode_ref_batch(
             flat, chunk_off[k0 : k1 + 1], chunk_cnt[k0:k1], chunk_blk[k0:k1],
-            limit, bmf, symbols, C, arity,
+            limit, bmf, symbols, C, arity, stages,
         )
     return out
 
 
-def _decode_ref_batch(flat, off, cnt, blk, limit, bmf, symbols, C, n):
+def _decode_ref_batch(flat, off, cnt, blk, limit, bmf, symbols, C, n, stages):
     dev = flat.device
     K = cnt.shape[0]
     nb = off[1:] - off[:-1]
@@ -111,23 +137,33 @@ def _decode_ref_batch(flat, off, cnt, blk, limit, bmf, symbols, C, n):
     bidx = torch.cumsum(mask.to(torch.int64), 1) - mask.to(torch.int64)
     mask = mask & (bidx < cnt.to(torch.int64).clamp(0, C)[:, None])
     sym = torch.gather(symbols.to(torch.int64)[blk.long()], 1, rank)
+    if stages < 4:
+        v = (ln, rank, sym)[stages - 1]
+        sums = torch.where(mask, v, 0).sum(1) & 0xFFFFFFFF
+        for i in range(4):
+            out[:, i] = ((sums >> (8 * i)) & 0xFF).to(torch.uint8)
+        return out
     kk, tt = mask.nonzero(as_tuple=True)
     out[kk, bidx[kk, tt]] = sym[kk, tt].to(torch.uint8)
     return out
 
 
-def decode_chunks(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
-                  chunk_syms, arity=2):
-    """Decode on the tensors' device: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors.  -> [K, C] uint8."""
+def decode_launcher(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
+                    chunk_syms, arity=2):
+    """Check the inputs once and return ``launch(stages=4)``, which
+    decodes them on their device: the CUDA kernel for CUDA tensors (no
+    further checks and no host sync per call, for timing loops), the
+    plain version for CPU tensors.  ``launch`` -> [K, C] uint8."""
     if flat.device.type == "cpu":
-        return decode_chunks_ref(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf,
-                                 symbols, chunk_syms, arity)
+        def launch_ref(stages=4):
+            return decode_chunks_ref(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf,
+                                     symbols, chunk_syms, arity, stages)
+        return launch_ref
     K, B, C = _check(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
                      chunk_syms, arity)
     _build.require_cuda(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols)
     dev = flat.device
-    out = torch.empty((K, C), dtype=torch.uint8, device=dev)
+    blk_start = None
     if K and B:
         # the kernel reads flat[chunk_off[k]:chunk_off[k+1]] unchecked
         bad = (chunk_off[0] < 0) | (chunk_off[-1] > flat.numel()) | (chunk_off.diff() < 0).any()
@@ -139,15 +175,32 @@ def decode_chunks(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
         blk_start = torch.searchsorted(
             chunk_blk, torch.arange(B + 1, dtype=torch.int32, device=dev)
         )
-        with torch.cuda.device(dev):
-            rc = _build.lib().dct_huffman_decode(
-                flat.data_ptr(), chunk_off.data_ptr(), chunk_cnt.data_ptr(),
-                blk_start.data_ptr(), limit.data_ptr(), bmf.data_ptr(),
-                symbols.data_ptr(), out.data_ptr(), B, C, arity, _build.stream_of(flat),
-            )
-        _build.check(rc, "huffman_decode")
-        decode_chunks.launches += 1
-    return out
+
+    def launch(stages=4):
+        _check_stages(stages)
+        out = torch.empty((K, C), dtype=torch.uint8, device=dev)
+        if blk_start is not None:
+            with torch.cuda.device(dev):
+                rc = _build.lib().dct_huffman_decode(
+                    flat.data_ptr(), chunk_off.data_ptr(), chunk_cnt.data_ptr(),
+                    blk_start.data_ptr(), limit.data_ptr(), bmf.data_ptr(),
+                    symbols.data_ptr(), out.data_ptr(), B, C, arity, stages,
+                    _build.stream_of(flat),
+                )
+            _build.check(rc, "huffman_decode")
+            decode_chunks.launches += 1
+        return out
+
+    return launch
+
+
+def decode_chunks(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
+                  chunk_syms, arity=2, stages=4):
+    """Decode on the tensors' device: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors.  -> [K, C] uint8."""
+    _check_stages(stages)
+    return decode_launcher(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
+                           chunk_syms, arity)(stages)
 
 
 decode_chunks.launches = 0

@@ -26,6 +26,14 @@ a fixed-stride row of its own, ``b*S/C + k``.
   rows [B*S/C, max_chunk_bytes(C, n)] uint8 — bytes past
       ceil(digits / D) of each row are undefined;
   digits [B*S/C] int32.
+Its ``stages`` argument is ``_encode_pallas(stages=)``'s profiling
+ablation, each stage a prefix of the work with its own observable in
+``digits`` (``rows`` are undefined at stages < 3):
+  1  lookup only: the chunk's digit count (= the full kernel's digits);
+  2  + digit accumulation into wire bytes, not stored: the sum of the
+     chunk's wire bytes (= ``rows[row, :ceil(digits / D)].sum()`` of the
+     full kernel);
+  3  the full kernel (the library path).
 """
 
 from __future__ import annotations
@@ -119,17 +127,37 @@ def encode_blocks_ref(blocks, raw_lens, dense, chunk_syms, arity=2):
     return rows, digits.to(torch.int32), nbytes.sum(1).to(torch.int32)
 
 
-def encode_chunk_rows_ref(blocks, raw_lens, dense, chunk_syms, arity=2):
+ENCODE_STAGES = (1, 2, 3)
+
+
+def _check_stages(stages):
+    if stages not in ENCODE_STAGES:
+        raise ValueError(f"encode stages must be one of {ENCODE_STAGES}, got {stages!r}")
+
+
+def encode_chunk_rows_ref(blocks, raw_lens, dense, chunk_syms, arity=2, stages=3):
     """Plain PyTorch version (any device) of ``encode_chunk_rows``: the
     digit scatter of ``encode_blocks_ref`` with one fixed-stride row per
-    chunk, so each symbol's digit offset is its in-chunk digit cumsum."""
+    chunk, so each symbol's digit offset is its in-chunk digit cumsum.
+    At stages < 3 the rows are zeros and ``digits`` holds the stage's
+    observable."""
     B, S, C, ncb = _check(blocks, raw_lens, dense, chunk_syms, arity)
+    _check_stages(stages)
     nd, code = _symbol_codes(blocks, raw_lens, dense, C, arity)
+    digits = nd.sum(-1).view(B * ncb)
+    mb = max_chunk_bytes(C, arity)
+    if stages == 1:
+        return torch.zeros((B * ncb, mb), dtype=torch.uint8, device=blocks.device), \
+            digits.to(torch.int32)
     sym_digit = (torch.cumsum(nd, -1) - nd).view(B, S)
     row = torch.arange(B * ncb, device=blocks.device).view(B, ncb, 1).expand(B, ncb, C)
     rows = _scatter_digits(code, nd.view(B, S), row.reshape(B, S), sym_digit,
-                           (B * ncb, max_chunk_bytes(C, arity)), arity)
-    return rows, nd.sum(-1).view(B * ncb).to(torch.int32)
+                           (B * ncb, mb), arity)
+    if stages == 2:
+        valid = torch.arange(mb, device=blocks.device)[None, :] < wire_bytes(digits, arity)[:, None]
+        wire_sum = torch.where(valid, rows.to(torch.int64), 0).sum(1)
+        return torch.zeros_like(rows), wire_sum.to(torch.int32)
+    return rows, digits.to(torch.int32)
 
 
 def _require_kernel_inputs(blocks, raw_lens, dense):
@@ -167,12 +195,13 @@ def encode_blocks(blocks, raw_lens, dense, chunk_syms, arity=2):
 encode_blocks.launches = 0
 
 
-def encode_chunk_rows(blocks, raw_lens, dense, chunk_syms, arity=2):
+def encode_chunk_rows(blocks, raw_lens, dense, chunk_syms, arity=2, stages=3):
     """Per-chunk-row encode on the tensors' device: the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors.  -> (rows, digits)."""
     if blocks.device.type == "cpu":
-        return encode_chunk_rows_ref(blocks, raw_lens, dense, chunk_syms, arity)
+        return encode_chunk_rows_ref(blocks, raw_lens, dense, chunk_syms, arity, stages)
     B, S, C, ncb = _check(blocks, raw_lens, dense, chunk_syms, arity)
+    _check_stages(stages)
     _require_kernel_inputs(blocks, raw_lens, dense)
     mb = max_chunk_bytes(C, arity)
     dev = blocks.device
@@ -182,7 +211,7 @@ def encode_chunk_rows(blocks, raw_lens, dense, chunk_syms, arity=2):
         with torch.cuda.device(dev):
             rc = _build.lib().dct_huffman_encode_rows(
                 blocks.data_ptr(), raw_lens.data_ptr(), dense.data_ptr(),
-                rows.data_ptr(), digits.data_ptr(), B, S, C, mb, arity,
+                rows.data_ptr(), digits.data_ptr(), B, S, C, mb, arity, stages,
                 _build.stream_of(blocks),
             )
         _build.check(rc, "huffman_encode_rows")

@@ -18,10 +18,13 @@ from data_compression_tpu_torch.huffman import batched as hb
 from data_compression_tpu_torch.huffman.batched import to_device
 from data_compression_tpu_torch.models.huffman import HuffmanCodec
 from data_compression_tpu_torch.ops.kernels import compact as kcmp
+from data_compression_tpu_torch.ops.kernels import copy as kcopy
 from data_compression_tpu_torch.ops.kernels import decode as kdec
 from data_compression_tpu_torch.ops.kernels import encode as kenc
+from data_compression_tpu_torch.ops.kernels import microbench as kmb
 from data_compression_tpu_torch.parallel import compress_sharded, decompress_sharded, make_mesh
 from data_compression_tpu_torch.parallel import multihost
+from data_compression_tpu_torch.tools import ablate, microbench
 from data_compression_tpu_torch.utils.corpora import complete_lengths, deep_code_block, enwik_like
 
 pytestmark = pytest.mark.cuda
@@ -215,3 +218,81 @@ def test_wrappers_reject_bad_cuda_inputs(cuda):
                 chunk_syms=16)
     with pytest.raises(ValueError):
         kdec.decode_chunks(**args)
+
+
+def test_copy_kernel_matches_clone(cuda):
+    """The main path's [128, 512, 128] blocks, and a flat size with a
+    tail of 9 bytes."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for shape in ((128, 512, 128), (1_000_009,)):
+        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=cuda, generator=gen)
+        before = kcopy.copy_blocks.launches
+        y = kcopy.copy_blocks(x)
+        assert kcopy.copy_blocks.launches == before + 1
+        assert torch.equal(y, kcopy.copy_blocks_ref(x)) and y.data_ptr() != x.data_ptr()
+
+
+@pytest.mark.parametrize("name", kmb.VARIANTS)
+def test_lookup_kernels_match_plain_versions(cuda, name):
+    """The microbenchmark's B = 128 inputs, and at C = 576 random tables
+    with negative entries (stage1_like's lane mask cuts in there)."""
+    s, tables = microbench.make_inputs(microbench.B, cuda)
+    before = kmb.WRAPPERS[name].launches
+    got = kmb.lookup_variant(name, s, tables[name])
+    assert kmb.WRAPPERS[name].launches == before + 1
+    assert torch.equal(got, kmb.lookup_variant_ref(name, s, tables[name]))
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    s = torch.randint(0, 256, (3, 576, 128), dtype=torch.uint8, device=cuda, generator=gen)
+    t = tables[name]
+    if t is not None:
+        t = torch.randint(-2**31, 2**31, (3, *t.shape[1:]), dtype=torch.int64, device=cuda,
+                          generator=gen).to(t.dtype)
+    assert torch.equal(kmb.lookup_variant(name, s, t), kmb.lookup_variant_ref(name, s, t))
+
+
+@pytest.mark.parametrize("n", ARITIES)
+def test_stage_observables_match_plain_full_versions(cuda, n):
+    """Rows-encode stages 1-2 and decode stages 1-3 against their
+    definitions from the plain full versions, stage 3 rows and stage 4
+    symbols against the plain versions, with block 7 coded by a table
+    at the length cap and its chunk 0 all L-digit codes."""
+    cfg = pt.CodecConfig(arity=n)
+    C = cfg.chunk_syms
+    codec = HuffmanCodec(cfg, cuda)
+    data = _data()
+    blocks, lengths = framing.split_blocks(data, cfg.block_size)
+    dev_blocks, dev_lens = codec.upload_blocks(blocks, lengths)
+    tb = _deep_tables(codec, dev_blocks, dev_lens, n)
+    deep = torch.from_numpy(np.flatnonzero(tb.lengths[7] == ARITY_MAX_LEN[n]).astype(np.uint8))
+    dev_blocks[7, :C] = deep.to(cuda)[torch.arange(C, device=cuda) % deep.numel()]
+    dense = to_device(tb, cuda)["dense"]
+    rows, digits = kenc.encode_chunk_rows(dev_blocks, dev_lens, dense, C, n)
+    nb = wire_bytes(digits.long(), n)
+    flat = rows[torch.arange(rows.shape[1], device=cuda)[None, :] < nb[:, None]]
+    payloads = codec._assemble_payloads(flat.cpu().numpy(), nb.view(len(lengths), -1).cpu().numpy(),
+                                        lengths, tb.table_bytes())
+    args, _ = codec.decode_inputs(payloads, lengths, None)
+    inp = ablate.Inputs(data, n, C, dev_blocks, dev_lens, dense, tb, args)
+    errs = ablate.check_stages(inp)
+    assert len(errs) == 7 and not any(errs.values())
+    assert int(digits.max()) == ARITY_MAX_LEN[n] * C
+
+
+def test_tools_run_on_the_card(cuda):
+    report = ablate.run(2, 8, cuda, min_trial_s=0.01)
+    keys = {"passthrough_ms", "passthrough_gbps", "passthrough_library_ms", "encode_stage1_ms",
+            "encode_stage2_ms", "encode_stage3_ms", "encode_lookup_ms", "encode_merge_ms",
+            "encode_wire_ms", "encode_gbps", "decode_window_walk_ms", "decode_rank_ms",
+            "decode_ranksym_ms", "decode_store_ms", "decode_gbps", "copy_envelope_gbps"}
+    assert keys <= set(report) and report["arity"] == 2 and report["mb"] == 8
+    assert all(np.isfinite(report[k]) for k in keys)
+    assert all(report[k] > 0 for k in keys if not k.endswith(("merge_ms", "wire_ms", "rank_ms",
+                                                                "ranksym_ms", "store_ms")))
+    assert set(report["device_ms"]) == {
+        "passthrough", "passthrough_library", *(f"encode_stage{k}" for k in (1, 2, 3)),
+        *(f"decode_stage{k}" for k in (1, 2, 3, 4))}
+    assert all(0 < v < 1e3 for v in report["device_ms"].values())
+    results = microbench.run(cuda, reps=3)
+    assert [r["variant"] for r in results] == list(kmb.VARIANTS)
+    assert all(r["ms"] > 0 and r["gbps"] > 0 for r in results)
+    assert {r["variant"] for r in results if "library_ms" in r} == set(microbench.LIBRARY_VARIANTS)
