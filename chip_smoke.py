@@ -47,13 +47,18 @@ replaces, launches in that arity's runs of phases 4 and 5, or for the
 tools' kernels in phase 7, each counted from 0, max abs error against
 the plain version, ms per call, plain ms per call, the bound: the
 bytes the call must move at 3.35 TB/s, and library ms, the time of one
-PyTorch call computing the same function, or null).  A time per call is
+PyTorch call computing the same function, or null; the copy kernel's
+entry also has ``device_ms`` and ``library_device_ms``, device time per
+call by torch.profiler, ``tools.timing.device_ms``).  A time per call is
 the best of 3 trials of back-to-back calls, each at least 0.05 s
 (``tools.timing.time_chain``), the lookup variants' the median of
-single launches with the input cold in L2 (``tools.timing.cold_ms``);
-the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero
-without printing a result when no CUDA device is available or when the
-package is not beside this script.
+single launches with the input cold in L2 (``tools.timing.cold_ms``).
+The decode kernel is timed alone, through ``decode_launcher`` (inputs
+checked once); the wrapper ``decode_chunks``, whose checks sync with
+the host on every call, is timed on a line of its own.  The last line
+is ``{"ok": true, "device": {...}}``.  Exits non-zero without printing
+a result when no CUDA device is available or when the package is not
+beside this script.
 """
 
 from __future__ import annotations
@@ -244,9 +249,12 @@ def kernel_phase(n: int, data: bytes, mods: dict, dev) -> dict:
     out = dec.decode_chunks(**args)
     out_r = dec.decode_chunks_ref(**args)
     valid = torch.arange(C, device=dev)[None, :] < args["chunk_cnt"][:, None]
+    log(f"wrapper decode_chunks n={n}: {chain_ms(lambda: dec.decode_chunks(**args)):.4f} ms "
+        "per call (input checks with a host sync, searchsorted, launch)")
+    launch = dec.decode_launcher(**args)  # checked once; the kernel alone per call
     results["huffman_decode"] = dict(
         max_abs_err=max_abs_err(out, out_r, valid),
-        ms=chain_ms(lambda: dec.decode_chunks(**args)),
+        ms=chain_ms(launch),
         plain_ms=chain_ms(lambda: dec.decode_chunks_ref(**args), 1),
         bound_ms=bound_ms(nbytes_of(*(args[k] for k in ("flat", "chunk_off", "chunk_cnt",
                                                            "chunk_blk", "limit", "bmf",
@@ -312,6 +320,8 @@ def tool_kernel_phase(data: bytes, dev) -> dict:
         plain_ms=chain_ms(lambda: kcopy.copy_blocks_ref(x)),
         bound_ms=bound_ms(2 * x.numel()), bound_by="bytes",
         library_ms=chain_ms(lambda: dst.copy_(x)),
+        device_ms=timing.device_ms(lambda: kcopy.copy_blocks(x)),
+        library_device_ms=timing.device_ms(lambda: dst.copy_(x)),
     )
     del x, y, dst, everywhere
 
@@ -332,7 +342,9 @@ def tool_kernel_phase(data: bytes, dev) -> dict:
     for name, r in results.items():
         log(f"kernel {name}: max_abs_err {r['max_abs_err']} kernel {r['ms']:.4f} ms "
             f"plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms"
-            + ("" if r["library_ms"] is None else f" library {r['library_ms']:.4f} ms"))
+            + ("" if r["library_ms"] is None else f" library {r['library_ms']:.4f} ms")
+            + ("" if "device_ms" not in r else f"; device {r['device_ms']:.4f} ms, "
+               f"library device {r['library_device_ms']:.4f} ms"))
     return results
 
 

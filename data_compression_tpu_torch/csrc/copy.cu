@@ -8,38 +8,37 @@
 //
 // What bounds it on the card: bytes only (each byte read once and written
 // once, 2 x 64 MiB at the profiling tool's size, about 40 us at
-// 3.35 TB/s).  Design: a grid-stride loop of 16-byte `uint4` loads and
-// stores, 256 threads per CTA and 8 CTAs per SM on 132 SMs (full
-// occupancy), each thread issuing 4 independent loads before its 4 stores
-// to keep enough bytes in flight; consecutive threads on consecutive
-// 16-byte words.  A tail of fewer than 16 bytes is copied byte by byte.
+// 3.35 TB/s).  Design: a grid sized by the data, each CTA one contiguous
+// 16 KiB tile, each of its 1024 threads one 16-byte word, loaded with an
+// evict-first hint (`__ldcs`) and written with a streaming store
+// (`__stcs`).  A tail of fewer than 16 bytes is copied byte by byte by the
+// last CTA.
+//
+// Why the first version (a grid-stride loop, 8 CTAs x 256 threads per SM,
+// 4 words in flight per thread, plain loads and stores) lost 7-9% to
+// `Tensor.copy_` (PERF.md): on one H100, a sweep of tile shapes and cache
+// hints found each of its choices slower than the one above: plain instead
+// of streaming loads and stores, several words per thread (fewer, longer
+// CTAs), a grid-stride or persistent grid.  A ring of shared-memory stages
+// filled and drained by the bulk-copy engine (cp.async.bulk, one CTA per
+// SM) was slower still.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCtasPerSm = 8;
-constexpr int kSms = 132;
-constexpr int kUnroll = 4;
+constexpr int kThreads = 1024;  // 16-byte words per CTA
 
 __global__ void __launch_bounds__(kThreads)
 copy_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst, int64_t n16,
             const uint8_t* __restrict__ src_tail, uint8_t* __restrict__ dst_tail,
             int tail) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  for (; i + (kUnroll - 1) * stride < n16; i += kUnroll * stride) {
-    uint4 v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) v[u] = src[i + u * stride];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) dst[i + u * stride] = v[u];
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < n16) __stcs(dst + i, __ldcs(src + i));
+  if (blockIdx.x == gridDim.x - 1 && static_cast<int>(threadIdx.x) < tail) {
+    dst_tail[threadIdx.x] = src_tail[threadIdx.x];
   }
-  for (; i < n16; i += stride) dst[i] = src[i];
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t < tail) dst_tail[t] = src_tail[t];
 }
 
 }  // namespace
@@ -48,12 +47,11 @@ extern "C" int dct_copy(const void* src, void* dst, long long nbytes, void* stre
   if (nbytes > 0) {
     const int64_t n16 = static_cast<int64_t>(nbytes) >> 4;
     const int tail = static_cast<int>(nbytes & 15);
-    const int64_t want = (n16 + kThreads - 1) / kThreads;
-    const int grid = static_cast<int>(want < kSms * kCtasPerSm ? (want > 0 ? want : 1)
-                                                               : kSms * kCtasPerSm);
+    const int64_t tiles = (n16 + kThreads - 1) / kThreads;
     const auto* s = static_cast<const uint8_t*>(src);
     auto* d = static_cast<uint8_t*>(dst);
-    copy_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    copy_kernel<<<static_cast<unsigned>(tiles > 0 ? tiles : 1), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const uint4*>(s), reinterpret_cast<uint4*>(d), n16,
         s + (n16 << 4), d + (n16 << 4), tail);
   }

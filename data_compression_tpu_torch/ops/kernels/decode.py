@@ -17,6 +17,11 @@ Replaces ``data_compression_tpu/ops/pallas/decode_kernel.py``
 Output: [K, C] uint8, chunk k's symbols in row k; bytes past
 chunk_cnt[k] are undefined.
 
+The kernel reads each code's length, rank and symbol from a per-block
+table of ``LUT_DIGITS[n]``-digit window prefixes that it builds in
+shared memory; ``decode_lut_ref`` builds the same table in plain
+PyTorch for the tests.
+
 ``stages`` is ``_decode_pallas(stages=)``'s profiling ablation, in the
 port's own loop (the TPU's boundary walk is this loop's consumption of
 each code's digits, and its compaction has no counterpart).  At stages <
@@ -38,6 +43,7 @@ from data_compression_tpu_torch.ops.kernels import _build
 
 _REF_BATCH = 32768  # chunks per step of the plain version (bounds memory)
 DECODE_STAGES = (1, 2, 3, 4)
+LUT_DIGITS = {2: 11, 16: 3, 3: 7}  # the kernel's table index: top K window digits (Arity<N>::kK)
 
 
 def _check_stages(stages):
@@ -146,6 +152,33 @@ def _decode_ref_batch(flat, off, cnt, blk, limit, bmf, symbols, C, n, stages):
     kk, tt = mask.nonzero(as_tuple=True)
     out[kk, bidx[kk, tt]] = sym[kk, tt].to(torch.uint8)
     return out
+
+
+def decode_lut_ref(limit, bmf, symbols, arity):
+    """The kernel's per-block table of k-digit window prefixes (k =
+    ``LUT_DIGITS[arity]``), in plain PyTorch, for tests: [B, arity**k]
+    int64 entries packed as the kernel packs them (symbol byte
+    | rank << 8 | ln << 16 | top << 20, ``top`` the prefix's first ln
+    digits), or 0, the marker that sends a window to the compare chain.
+    Prefix p covers W in [p * n**(L-k), (p+1) * n**(L-k) - 1]; its entry
+    is exact when the chain gives one ln <= k at both ends (ln is
+    nondecreasing in W for any limits).  Limits compare as uint32, as in
+    the kernel."""
+    n, L, k = arity, ARITY_MAX_LEN[arity], LUT_DIGITS[arity]
+    dev = limit.device
+    lim = limit.to(torch.int64) & 0xFFFFFFFF
+    span = n ** (L - k)
+    lo = torch.arange(n**k, dtype=torch.int64, device=dev) * span
+
+    def chain(W):
+        return 1 + (W[None, :, None] >= lim[:, None, 1:L]).sum(-1)
+
+    ln = chain(lo)
+    exact = (ln <= k) & (chain(lo + span - 1) == ln)
+    top = lo[None, :] // (n ** (L - ln))
+    rank = (torch.gather(bmf.to(torch.int64), 1, ln) + top) & 0xFF
+    sym = torch.gather(symbols.to(torch.int64), 1, rank) & 0xFF
+    return torch.where(exact, sym | rank << 8 | ln << 16 | top << 20, 0)
 
 
 def decode_launcher(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,

@@ -155,6 +155,58 @@ def test_decode_kernel_complete_tree_and_random_bytes(cuda, n):
     assert torch.equal(kdec.decode_chunks(**args)[valid], kdec.decode_chunks_ref(**args)[valid])
 
 
+@pytest.mark.parametrize("n", ARITIES)
+def test_decode_kernel_random_tables_and_bytes(cuda, n):
+    """Seeded random tables (limits in [0, n**L], in no order; bmf and
+    symbols arbitrary) on random bytes, in blocks of 1, 130 and 77 chunks
+    with counts 0, 1, 3, 5, 17, 33 and C: every stage equals the plain
+    version.  Each chunk holds at least cnt * L digits, so every symbol
+    the plain version decodes comes from the chunk's own bytes."""
+    rng = np.random.default_rng(70 + n)
+    L, D, C = ARITY_MAX_LEN[n], {2: 8, 16: 2, 3: 5}[n], 512
+    per_block = [1, 130, 77]
+    B = len(per_block)
+    limit = rng.integers(0, n**L + 1, (B, L + 1))
+    limit[0] = np.sort(limit[0])
+    tables = [torch.from_numpy(a.astype(np.int32)).to(cuda) for a in (
+        limit, rng.integers(-(1 << 20), 1 << 20, (B, L + 1)), rng.integers(0, 256, (B, 256)))]
+    K = sum(per_block)
+    cnt = np.array([0, 1, 3, 5, 17, 33, C])[np.arange(K) % 7]
+    sizes = -(-cnt * L // D) + rng.integers(0, 9, K)
+    off = np.concatenate([[0], np.cumsum(sizes)])
+    args = dict(
+        flat=torch.from_numpy(rng.integers(0, 256, int(off[-1]), dtype=np.uint8)).to(cuda),
+        chunk_off=torch.from_numpy(off.astype(np.int64)).to(cuda),
+        chunk_cnt=torch.from_numpy(cnt.astype(np.int32)).to(cuda),
+        chunk_blk=torch.from_numpy(np.repeat(np.arange(B), per_block).astype(np.int32)).to(cuda),
+        limit=tables[0], bmf=tables[1], symbols=tables[2], chunk_syms=C, arity=n)
+    valid = torch.arange(C, device=cuda)[None, :] < args["chunk_cnt"][:, None]
+    out = kdec.decode_chunks(**args)
+    assert torch.equal(out[valid], kdec.decode_chunks_ref(**args)[valid])
+    for k in (1, 2, 3):
+        got = kdec.stage_sums(kdec.decode_chunks(**args, stages=k))
+        assert torch.equal(got, kdec.stage_sums(kdec.decode_chunks_ref(**args, stages=k)))
+
+
+@pytest.mark.parametrize("n", ARITIES)
+@pytest.mark.parametrize("chunk_syms", [16, 128, 512, 1024])
+def test_decode_kernel_chunk_geometry(cuda, chunk_syms, n):
+    """Frames of 64 KiB blocks at every chunk size (4096 down to 64
+    chunks per block; a partial last block) decode on the card as the
+    plain version decodes them, and give back the input."""
+    cfg = pt.CodecConfig(arity=n, chunk_syms=chunk_syms)
+    assert cfg.block_size == 65536
+    codec = HuffmanCodec(cfg, cuda)
+    x = _data()
+    frame = framing.unpack_frame(pt.compress(x, cfg, device=cuda))
+    args, _ = codec.decode_inputs(frame.payloads, [e.raw_len for e in frame.entries],
+                                  frame.shared_table)
+    out = kdec.decode_chunks(**args)
+    valid = torch.arange(chunk_syms, device=cuda)[None, :] < args["chunk_cnt"][:, None]
+    assert torch.equal(out[valid], kdec.decode_chunks_ref(**args)[valid])
+    assert out[valid].cpu().numpy().tobytes() == x
+
+
 def test_sharded_one_rank_nccl_matches_compress(cuda, tmp_path):
     x = _data()
     multihost.initialize("nccl", f"file://{tmp_path}/store", 1, 0, device=cuda)
@@ -230,6 +282,18 @@ def test_copy_kernel_matches_clone(cuda):
         y = kcopy.copy_blocks(x)
         assert kcopy.copy_blocks.launches == before + 1
         assert torch.equal(y, kcopy.copy_blocks_ref(x)) and y.data_ptr() != x.data_ptr()
+
+
+@pytest.mark.parametrize("size", [0, 1, 15, 16, 17, (1 << 20) + 3, (64 << 20) + 5])
+def test_copy_kernel_any_length(cuda, size):
+    """Empty, shorter than one 16-byte word, one word, a word and a tail,
+    and sizes that are no multiple of the kernel's tile."""
+    gen = torch.Generator(device=cuda).manual_seed(size)
+    x = torch.randint(0, 256, (size,), dtype=torch.uint8, device=cuda, generator=gen)
+    before = kcopy.copy_blocks.launches
+    y = kcopy.copy_blocks(x)
+    assert kcopy.copy_blocks.launches == before + (size > 0)
+    assert torch.equal(y, x.clone())
 
 
 @pytest.mark.parametrize("name", kmb.VARIANTS)

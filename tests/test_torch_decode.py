@@ -15,8 +15,9 @@ import data_compression_tpu.huffman.batched as jhb
 from data_compression_tpu.models.huffman import encode_chunk_np
 
 import data_compression_tpu_torch.huffman.batched as phb
+from data_compression_tpu_torch.config import ARITY_MAX_LEN
 from data_compression_tpu_torch.ops.kernels import decode as kdec
-from data_compression_tpu_torch.utils.corpora import deep_code_block, enwik_like
+from data_compression_tpu_torch.utils.corpora import complete_lengths, deep_code_block, enwik_like
 
 
 def _encoded(data, raw_lens, C):
@@ -116,6 +117,64 @@ def test_decode_ref_corrupt_stream_stays_in_bounds():
     chunks = [[bytes(rng.integers(0, 256, len(c), dtype=np.uint8)) for c in chunks[0]]]
     got = _port_decode(tj, chunks, [2048], 512)
     assert len(got[0]) == 2048
+
+
+def _lut_tables(source, n, rng):
+    """(limit, bmf, symbols) int32 tensors of a few blocks: the port's
+    tables of enwik-like and deep-code blocks, complete trees at the
+    length cap, or seeded random nonnegative limits in [0, n**L]."""
+    L = ARITY_MAX_LEN[n]
+    if source == "random":
+        B = 4
+        limit = rng.integers(0, n**L + 1, (B, L + 1))
+        limit[1] = np.sort(limit[1])  # one monotone row among the arbitrary ones
+        bmf = rng.integers(-(1 << 20), 1 << 20, (B, L + 1))
+        symbols = rng.integers(0, 256, (B, 256))
+        return tuple(torch.from_numpy(a.astype(np.int32)) for a in (limit, bmf, symbols))
+    if source == "real":
+        data = np.frombuffer(enwik_like(65536, 40 + n) + deep_code_block(65536, 41), np.uint8)
+        hists = np.stack([np.bincount(r, minlength=256) for r in data.reshape(2, -1)])
+        lengths = phb.capped_lengths_batch(hists.astype(np.int64), n)
+    else:
+        lengths = np.stack([complete_lengths(n, L, s) for s in ((256, 129) if n == 2 else
+                                                                (256, 241) if n == 16 else (255, 33))])
+    tabs = phb.decode_tensors(phb.codes_batch(lengths, n), "cpu")
+    return tabs["limit"], tabs["bmf"], tabs["symbols"]
+
+
+@pytest.mark.parametrize("source", ["real", "complete", "random"])
+@pytest.mark.parametrize("n", [2, 16, 3])
+def test_decode_lut_entries_match_compare_chain(n, source):
+    """Every entry of the kernel's K-digit table that is not the marker
+    gives the compare chain's (ln, rank, symbol) for every window W of
+    its prefix: all 2**15 windows at n = 2, a seeded sample plus both ends
+    of every prefix at n = 16 and 3.  On canonical tables the entry is a
+    marker exactly where the code is longer than K digits."""
+    rng = np.random.default_rng(50 + n)
+    limit, bmf, symbols = _lut_tables(source, n, rng)
+    L, K = ARITY_MAX_LEN[n], kdec.LUT_DIGITS[n]
+    lut = kdec.decode_lut_ref(limit, bmf, symbols, n)
+    span = n ** (L - K)
+    assert lut.shape == (limit.shape[0], n**K)
+    if n == 2:
+        W = torch.arange(n**L, dtype=torch.int64)
+    else:
+        ends = torch.arange(n**K, dtype=torch.int64) * span
+        W = torch.cat([ends, ends + span - 1,
+                       torch.from_numpy(rng.integers(0, n**L, 200_000))])
+    lim = limit.to(torch.int64)
+    ln = 1 + (W[None, :, None] >= lim[:, None, 1:L]).sum(-1)  # [B, |W|]
+    rank = (torch.gather(bmf.to(torch.int64), 1, ln) + W[None, :] // n ** (L - ln)) & 0xFF
+    sym = torch.gather(symbols.to(torch.int64), 1, rank) & 0xFF
+    e = lut[:, W // span]
+    hit = e != 0
+    assert torch.equal((e >> 16 & 0xF)[hit], ln[hit])
+    assert torch.equal((e >> 8 & 0xFF)[hit], rank[hit])
+    assert torch.equal((e & 0xFF)[hit], sym[hit])
+    assert torch.equal((e >> 20)[hit], (W[None, :] // n ** (L - ln))[hit])
+    if source != "random":
+        assert torch.equal(hit, ln <= K)
+    assert bool(hit.any())
 
 
 def test_decode_wrapper_cpu_dispatch_and_checks():
