@@ -9,13 +9,18 @@ network; it imports nothing of JAX.  Phases (any failure raises and the
 script exits non-zero without a result line):
 
   1. print the card (``nvidia-smi`` name and power limit);
-  2. build the CUDA kernels from ``data_compression_tpu_torch/csrc``;
+  2. build the CUDA kernels from ``data_compression_tpu_torch/csrc``,
+     and print ``nvcc -Xptxas -v``'s registers, stack and spill bytes of
+     the encode kernels (``_build.ptxas_usage``), requiring 0 stack and
+     0 spill;
   3. at each Huffman arity with kernels (2, 16, 3), run each kernel
      against its plain PyTorch version on the card at the main path's
      shapes (64 MiB = 1024 blocks of 64 KiB, C = 512: a seeded
      enwik-like corpus plus one deep-code block, whose table at n = 3
      and 16 is replaced by a complete tree that reaches the length cap)
-     and require byte equality of the valid bytes; the decode kernel
+     and require byte equality of the valid bytes; both encode kernels
+     also encode the input with that block's chunk 0 made of L-digit
+     symbols, whose wire bytes fill max_chunk_bytes; the decode kernel
      reads the encode kernel's payloads and must give back the input;
   4. the slice at each arity: ``compress`` -> ``decompress`` of the
      64 MiB input on ``cuda`` must round-trip, with the launch count of
@@ -211,21 +216,35 @@ def kernel_phase(n: int, data: bytes, mods: dict, dev) -> dict:
     enc, cmp_, dec = mods["encode"], mods["compact"], mods["decode"]
     results = {}
 
-    rows, digits, bb = enc.encode_blocks(dev_blocks, dev_lens, dense, C, n)
-    rows_r, digits_r, bb_r = enc.encode_blocks_ref(dev_blocks, dev_lens, dense, C, n)
-    torch.cuda.synchronize()
-    if not (torch.equal(digits, digits_r) and torch.equal(bb, bb_r)):
-        raise AssertionError(f"encode n={n}: digit or byte counts differ from the plain version")
-    valid = torch.arange(rows.shape[1], device=dev)[None, :] < bb[:, None].long()
+    # chunk 0 of the last block rewritten to its table's L-digit symbols,
+    # so that its wire bytes fill all max_chunk_bytes (both encode layouts)
+    deep = torch.from_numpy(np.flatnonzero(tb.lengths[-1] == L).astype(np.uint8)).to(dev)
+    rows_in = dev_blocks.clone()
+    rows_in[-1, :C] = deep[torch.arange(C, device=dev) % deep.numel()]
+
+    def compact_encode(blocks):
+        """The compact encode kernel against its plain version on
+        ``blocks``; -> (rows, digits, block_bytes, max abs err)."""
+        rows, digits, bb = enc.encode_blocks(blocks, dev_lens, dense, C, n)
+        rows_r, digits_r, bb_r = enc.encode_blocks_ref(blocks, dev_lens, dense, C, n)
+        torch.cuda.synchronize()
+        if not (torch.equal(digits, digits_r) and torch.equal(bb, bb_r)):
+            raise AssertionError(f"encode n={n}: digit or byte counts differ from plain")
+        valid = torch.arange(rows.shape[1], device=dev)[None, :] < bb[:, None].long()
+        return rows, digits, bb, max_abs_err(rows, rows_r, valid)
+
+    _, digits, _, deep_err = compact_encode(rows_in)
+    if int(digits.max()) != L * C:
+        raise AssertionError(f"encode n={n}: no chunk filled max_chunk_bytes in the compact layout")
+    rows, digits, bb, err = compact_encode(dev_blocks)
     raw = int(dev_lens.long().sum())  # symbol bytes the kernels read
     results["huffman_encode"] = dict(
-        max_abs_err=max_abs_err(rows, rows_r, valid),
+        max_abs_err=max(err, deep_err),
         ms=chain_ms(lambda: enc.encode_blocks(dev_blocks, dev_lens, dense, C, n)),
         plain_ms=chain_ms(lambda: enc.encode_blocks_ref(dev_blocks, dev_lens, dense, C, n), 1),
         bound_ms=bound_ms(raw + nbytes_of(dev_lens, dense, digits, bb) + int(bb.long().sum())),
         bound_by="bytes", library_ms=None,
     )
-    del rows_r, digits_r, bb_r, valid
 
     flat = cmp_.compact_blocks(rows, bb)
     flat_r = cmp_.compact_blocks_ref(rows, bb)
@@ -266,11 +285,7 @@ def kernel_phase(n: int, data: bytes, mods: dict, dev) -> dict:
         raise AssertionError(f"decode n={n}: symbols differ from the input")
     del out, out_r, args, flat, digits, bb, valid
 
-    # the rows kernel; chunk 0 of the last block is rewritten to its
-    # table's L-digit symbols so that its row fills all max_chunk_bytes
-    deep = torch.from_numpy(np.flatnonzero(tb.lengths[-1] == L).astype(np.uint8)).to(dev)
-    rows_in = dev_blocks.clone()
-    rows_in[-1, :C] = deep[torch.arange(C, device=dev) % deep.numel()]
+    # the rows kernel, on the input whose chunk fills its row
     rows, digits = enc.encode_chunk_rows(rows_in, dev_lens, dense, C, n)
     rows_r, digits_r = enc.encode_chunk_rows_ref(rows_in, dev_lens, dense, C, n)
     torch.cuda.synchronize()
@@ -480,6 +495,12 @@ def main() -> int:
     _build.lib()
     log(f"kernel build: {time.perf_counter() - t0:.3f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
+    usage = _build.ptxas_usage("huffman_encode.cu")
+    for fn, u in sorted(usage.items()):
+        log(f"ptxas huffman_encode.cu {fn}: {u}")
+    if not usage or any(u.get("stack", 1) or u.get("spill_stores", 1) or u.get("spill_loads", 1)
+                        for u in usage.values()):
+        raise AssertionError("an encode kernel uses stack or spills (nvcc -Xptxas -v above)")
 
     # -- 3. each kernel against its plain version at the main path's shapes
     data = enwik_like(MAIN_BYTES - 64 * 1024, SEED) + deep_code_block(64 * 1024, SEED)

@@ -87,6 +87,11 @@ class Frame:
         return 1 << self.chunk_log2 if self.chunk_log2 else 0
 
 
+def _check_codec(codec_id: int) -> None:
+    if codec_id not in CODEC_NAMES:
+        raise ValueError(f"unknown codec id {codec_id}")
+
+
 def _printable_not_ported():
     raise NotImplementedError("printable (Z85) containers are not yet ported")
 
@@ -138,15 +143,20 @@ def unpack_frame(data: bytes) -> Frame:
         raise ValueError(f"unsupported version {ver}")
     if crc32(data[: _HEADER.size - 4]) != hcrc:
         raise ValueError("header CRC mismatch")
+    _check_codec(codec_id)
     off = _HEADER.size
     shared_table = None
     if flags & FLAG_SHARED_TABLE:
+        if len(data) < off + 4:
+            raise ValueError("truncated frame: shared table length")
         (tlen,) = struct.unpack_from("<I", data, off)
         off += 4
         shared_table = bytes(data[off : off + tlen])
         if len(shared_table) != tlen:
             raise ValueError("truncated frame: shared table")
         off += tlen
+    if len(data) < off + nblocks * _ENTRY.size:
+        raise ValueError("truncated frame: block table")
     entries = []
     for _ in range(nblocks):
         comp, raw, bcrc, bflags = _ENTRY.unpack_from(data, off)
@@ -185,7 +195,7 @@ def read_frame(stream) -> Optional[bytes]:
     header = sniff + stream.read(_HEADER.size - 4)
     if len(header) < _HEADER.size:
         raise ValueError("truncated frame: header")
-    (magic, ver, flags, _codec, _arity, _bsize, nblocks, _total, _cl2, hcrc) = (
+    (magic, ver, flags, codec_id, _arity, _bsize, nblocks, _total, _cl2, hcrc) = (
         _HEADER.unpack_from(header, 0)
     )
     if magic != MAGIC:
@@ -194,6 +204,7 @@ def read_frame(stream) -> Optional[bytes]:
         raise ValueError(f"unsupported version {ver}")
     if crc32(header[: _HEADER.size - 4]) != hcrc:
         raise ValueError("header CRC mismatch")
+    _check_codec(codec_id)
     parts = [header]
     if flags & FLAG_SHARED_TABLE:
         raw = stream.read(4)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -128,6 +129,42 @@ def lib() -> ctypes.CDLL:
         loaded.dct_error_string.restype = ctypes.c_char_p
         _lib = loaded
         return _lib
+
+
+def ptxas_usage(source: str) -> dict:
+    """Per kernel of ``csrc/<source>``, what ``nvcc -Xptxas -v`` reports
+    for sm_90a at the library's optimisation level (a cubin built apart
+    from the library): {mangled name: {"registers", "stack",
+    "spill_stores", "spill_loads"}}, the last three in bytes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"ptxas-{os.getpid()}-{source}.cubin"
+    cmd = [_nvcc(), "-arch=sm_90a", "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v",
+           "-o", str(out), str(CSRC_DIR / source)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    finally:
+        out.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    usage, name = {}, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            usage.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            usage[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            usage.setdefault(name, {})
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
 
 
 def check(rc: int, kernel: str) -> None:

@@ -1,5 +1,5 @@
 """Stage ablation of the Huffman rows-encode and decode kernels on a CUDA
-device.
+device, with the compact encode kernel beside them.
 
     python -m data_compression_tpu_torch.tools.ablate [arity] [mb] [--out FILE] [--device cuda]
     python -m data_compression_tpu_torch.tools.ablate [arity] --smoke
@@ -22,12 +22,15 @@ line on stdout, also written to ``--out``; progress on stderr):
   encode_stage{1,2,3}_ms             cumulative: the rows kernel at stages=k
   encode_lookup_ms, encode_merge_ms, encode_wire_ms
                                      stage 1, 2 - 1, 3 - 2; encode_gbps
+  encode_compact_ms                  the compact encode kernel (the
+                                     single-device path's) on the same input
   decode_window_walk_ms, decode_rank_ms, decode_ranksym_ms, decode_store_ms
                                      the decode kernel's stage 1, 2 - 1,
                                      3 - 2, 4 - 3; decode_gbps
   copy_envelope_gbps                 timing.measure_envelope
   device_ms                          {passthrough, passthrough_library,
-                                     encode_stage{1,2,3}, decode_stage{1..4}:
+                                     encode_stage{1,2,3}, encode_compact,
+                                     decode_stage{1..4}:
                                      device ms per call (timing.device_ms)},
                                      against which a chain time shows
                                      whether the device or the host set it
@@ -217,6 +220,8 @@ def measure(inp: Inputs, min_trial_s: float = 0.25) -> dict:
     report["encode_merge_ms"] = (enc[2] - enc[1]) * 1e3
     report["encode_wire_ms"] = (enc[3] - enc[2]) * 1e3
     report["encode_gbps"] = nbytes / enc[3] / 1e9
+    report["encode_compact_ms"] = t(
+        "encode_compact", lambda: kenc.encode_blocks(inp.blocks, inp.lens, inp.dense, C, n)) * 1e3
 
     launch = kdec.decode_launcher(**inp.decode_args)
     dec = {}

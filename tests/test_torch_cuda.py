@@ -13,7 +13,7 @@ import torch
 
 import data_compression_tpu_torch as pt
 from data_compression_tpu_torch import framing
-from data_compression_tpu_torch.config import ARITY_MAX_LEN, wire_bytes
+from data_compression_tpu_torch.config import ARITY_MAX_LEN, max_chunk_bytes, wire_bytes
 from data_compression_tpu_torch.huffman import batched as hb
 from data_compression_tpu_torch.huffman.batched import to_device
 from data_compression_tpu_torch.models.huffman import HuffmanCodec
@@ -117,6 +117,86 @@ def test_rows_kernel_matches_plain_version(cuda, chunk_syms, n):
     rows_r, digits_r = kenc.encode_chunk_rows_ref(dev_blocks, dev_lens, dense, chunk_syms, n)
     assert torch.equal(digits, digits_r)
     assert int(digits.max()) == L * chunk_syms
+    valid = torch.arange(rows.shape[1], device=cuda)[None, :] < wire_bytes(digits[:, None].long(), n)
+    assert torch.equal(rows[valid], rows_r[valid])
+
+
+def _emitter_edge_inputs(n, C, S, B, seed, dev):
+    """B blocks of S symbols drawn from skewed random distributions (some
+    symbols take 1-digit codes), each coded by the canonical table of its
+    own histogram; the last block by a complete tree at the length cap,
+    with chunk 0 all L-digit symbols (its wire bytes fill
+    max_chunk_bytes).  Raw lengths end most blocks 0-39 symbols into a
+    chunk, so the last chunks carry from 0 to a few tens of wire bytes;
+    one block is empty and one full."""
+    rng = np.random.default_rng(seed)
+    L = ARITY_MAX_LEN[n]
+    blocks = np.empty((B, S), np.uint8)
+    for b in range(B):
+        p = rng.dirichlet(np.full(256, 0.05))
+        blocks[b] = rng.choice(256, S, p=p)
+    hists = np.stack([np.bincount(r, minlength=256) for r in blocks])
+    lengths = hb.capped_lengths_batch(hists, n)
+    lengths[-1] = complete_lengths(n, L, 255 if n == 3 else 256)
+    deep = np.flatnonzero(lengths[-1] == L)
+    blocks[-1, :C] = deep[np.arange(C) % deep.size]
+    raw = C * rng.integers(0, S // C, B) + rng.integers(0, min(C, 40), B)
+    raw[0], raw[-2], raw[-1] = 0, S, S
+    tb = hb.codes_batch(lengths, n)
+    return (torch.from_numpy(blocks).to(dev), torch.from_numpy(raw.astype(np.int32)).to(dev),
+            to_device(tb, dev)["dense"])
+
+
+@pytest.mark.parametrize("n", ARITIES)
+@pytest.mark.parametrize("chunk_syms,S,B", [(16, 4096, 24), (128, 4096, 24), (512, 4096, 24),
+                                            (1024, 8192, 24), (16, 65536, 3)])
+def test_encode_kernels_emitter_edges(cuda, chunk_syms, S, B, n):
+    """Both encode kernels at the edges of their shared-memory images and
+    16-byte stores: compact chunk offsets at every alignment 0-15, chunks
+    of 0 to a few tens of wire bytes, rows strides that are no multiple
+    of 16 (C = 16), a full max_chunk_bytes chunk in both layouts, chunks
+    that span two warp passes (C = 1024), and (S = 65536 at C = 16) rows
+    of 4096 chunks, 32 to a warp pass.  Valid bytes, digit counts, block
+    bytes and the rows kernel's stage-2 byte sums equal the plain
+    versions."""
+    C, L = chunk_syms, ARITY_MAX_LEN[n]
+    blocks, raw, dense = _emitter_edge_inputs(n, C, S, B, 90 + n + C + S, cuda)
+
+    rows, digits, bb = kenc.encode_blocks(blocks, raw, dense, C, n)
+    rows_r, digits_r, bb_r = kenc.encode_blocks_ref(blocks, raw, dense, C, n)
+    assert torch.equal(digits, digits_r) and torch.equal(bb, bb_r)
+    assert int(digits.max()) == L * C
+    valid = torch.arange(rows.shape[1], device=cuda)[None, :] < bb[:, None].long()
+    assert torch.equal(rows[valid], rows_r[valid])
+    nb = wire_bytes(digits.long(), n)
+    off = (torch.cumsum(nb, 1) - nb)[nb > 0]
+    assert set((off % 16).tolist()) == set(range(16))
+    assert int(nb[nb > 0].min()) < 16 and int(nb.max()) == max_chunk_bytes(C, n)
+
+    rows, digits = kenc.encode_chunk_rows(blocks, raw, dense, C, n)
+    rows_r, digits_r = kenc.encode_chunk_rows_ref(blocks, raw, dense, C, n)
+    assert torch.equal(digits, digits_r) and int(digits.max()) == L * C
+    valid = torch.arange(rows.shape[1], device=cuda)[None, :] < wire_bytes(digits[:, None].long(), n)
+    assert torch.equal(rows[valid], rows_r[valid])
+    _, sums = kenc.encode_chunk_rows(blocks, raw, dense, C, n, stages=2)
+    assert torch.equal(sums, kenc.encode_chunk_rows_ref(blocks, raw, dense, C, n, stages=2)[1])
+
+
+@pytest.mark.parametrize("n", ARITIES)
+@pytest.mark.parametrize("chunk_syms,S", [(512, 131072), (1024, 262144)])
+def test_encode_kernels_long_blocks(cuda, chunk_syms, S, n):
+    """Blocks of 256 warp passes: the compact kernel places them in two
+    rounds of its CTA scan (at C = 1024 each chunk spans two passes)."""
+    C = chunk_syms
+    blocks, raw, dense = _emitter_edge_inputs(n, C, S, 3, 95 + n + C, cuda)
+    rows, digits, bb = kenc.encode_blocks(blocks, raw, dense, C, n)
+    rows_r, digits_r, bb_r = kenc.encode_blocks_ref(blocks, raw, dense, C, n)
+    assert torch.equal(digits, digits_r) and torch.equal(bb, bb_r)
+    valid = torch.arange(rows.shape[1], device=cuda)[None, :] < bb[:, None].long()
+    assert torch.equal(rows[valid], rows_r[valid])
+    rows, digits = kenc.encode_chunk_rows(blocks, raw, dense, C, n)
+    rows_r, digits_r = kenc.encode_chunk_rows_ref(blocks, raw, dense, C, n)
+    assert torch.equal(digits, digits_r)
     valid = torch.arange(rows.shape[1], device=cuda)[None, :] < wire_bytes(digits[:, None].long(), n)
     assert torch.equal(rows[valid], rows_r[valid])
 
@@ -345,8 +425,8 @@ def test_stage_observables_match_plain_full_versions(cuda, n):
 def test_tools_run_on_the_card(cuda):
     report = ablate.run(2, 8, cuda, min_trial_s=0.01)
     keys = {"passthrough_ms", "passthrough_gbps", "passthrough_library_ms", "encode_stage1_ms",
-            "encode_stage2_ms", "encode_stage3_ms", "encode_lookup_ms", "encode_merge_ms",
-            "encode_wire_ms", "encode_gbps", "decode_window_walk_ms", "decode_rank_ms",
+            "encode_stage2_ms", "encode_stage3_ms", "encode_compact_ms", "encode_lookup_ms",
+            "encode_merge_ms", "encode_wire_ms", "encode_gbps", "decode_window_walk_ms", "decode_rank_ms",
             "decode_ranksym_ms", "decode_store_ms", "decode_gbps", "copy_envelope_gbps"}
     assert keys <= set(report) and report["arity"] == 2 and report["mb"] == 8
     assert all(np.isfinite(report[k]) for k in keys)
@@ -354,7 +434,7 @@ def test_tools_run_on_the_card(cuda):
                                                                 "ranksym_ms", "store_ms")))
     assert set(report["device_ms"]) == {
         "passthrough", "passthrough_library", *(f"encode_stage{k}" for k in (1, 2, 3)),
-        *(f"decode_stage{k}" for k in (1, 2, 3, 4))}
+        "encode_compact", *(f"decode_stage{k}" for k in (1, 2, 3, 4))}
     assert all(0 < v < 1e3 for v in report["device_ms"].values())
     results = microbench.run(cuda, reps=3)
     assert [r["variant"] for r in results] == list(kmb.VARIANTS)

@@ -265,6 +265,58 @@ def test_pack_unpack_frame_match(shared):
             pframing.read_frame(io.BytesIO(fj[:cut]))
 
 
+@pytest.mark.parametrize("shared", [False, True])
+def test_every_cut_through_the_block_table_raises(shared):
+    """A frame cut at any offset up to the end of its block table (the
+    header, the shared-table length and table, every table entry) raises
+    ValueError from each reader; at offset 0 ``read_frame`` sees a clean
+    end of stream."""
+    import data_compression_tpu_torch as pt
+
+    frame = pt.compress(enwik_like(3 * 4096 + 700, 21),
+                        PConfig(block_size=4096, chunk_syms=512, shared_table=shared),
+                        device="cpu")
+    f = pframing.unpack_frame(frame)
+    end = len(frame) - sum(e.comp_len for e in f.entries)  # the first payload byte
+    assert end == 32 + (4 + len(f.shared_table) if shared else 0) + 4 * 16  # 4 blocks
+    assert pframing.read_frame(io.BytesIO(b"")) is None
+    for cut in range(end + 1):
+        with pytest.raises(ValueError):
+            pframing.unpack_frame(frame[:cut])
+        if cut:
+            with pytest.raises(ValueError):
+                pframing.read_frame(io.BytesIO(frame[:cut]))
+        with pytest.raises(ValueError):
+            pt.decompress(frame[:cut], device="cpu")
+
+
+def _with_codec_id(frame: bytes, codec_id: int) -> bytes:
+    """``frame`` with its header's codec id replaced and the header CRC
+    recomputed."""
+    head = bytearray(frame[:28])
+    head[8] = codec_id
+    return bytes(head) + pframing.crc32(bytes(head)).to_bytes(4, "little") + frame[32:]
+
+
+def test_unknown_codec_id_raises(tmp_path):
+    import data_compression_tpu_torch as pt
+    from data_compression_tpu_torch import cli
+
+    frame = pt.compress(enwik_like(5000, 22), PConfig(block_size=4096), device="cpu")
+    bad = _with_codec_id(frame, 99)
+    assert pframing.unpack_frame(_with_codec_id(frame, 4)).codec_name == "huffman"
+    with pytest.raises(ValueError, match="codec id 99"):
+        pframing.unpack_frame(bad)
+    with pytest.raises(ValueError, match="codec id 99"):
+        pframing.read_frame(io.BytesIO(bad))
+    with pytest.raises(ValueError, match="codec id 99"):
+        pt.decompress(bad, device="cpu")
+    path = tmp_path / "bad.dctz"
+    path.write_bytes(bad)
+    with pytest.raises(ValueError, match="codec id 99"):
+        cli.main(["info", str(path)])
+
+
 def test_split_blocks_match():
     for n in (0, 1, 4095, 4096, 4097, 10000):
         data = bytes(np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8))

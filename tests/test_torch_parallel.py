@@ -126,6 +126,24 @@ def test_world1_flipped_payload_byte_raises(gloo1, shared):
             decompress_sharded(bytes(corrupt), None, gloo1)
 
 
+@pytest.mark.parametrize("shared", [False, True])
+def test_world1_truncated_table_or_unknown_codec_raises(gloo1, shared):
+    """Every cut up to the end of the block table, and codec id 99 under a
+    recomputed header CRC, raise ValueError from ``decompress_sharded``."""
+    stream = compress_sharded(enwik_like(2 * 4096 + 777, 76),
+                              pt.CodecConfig(block_size=4096, chunk_syms=512,
+                                             shared_table=shared), gloo1)
+    end = len(stream) - sum(e.comp_len for e in framing.unpack_frame(stream).entries)
+    for cut in range(end + 1):
+        with pytest.raises(ValueError):
+            decompress_sharded(stream[:cut], None, gloo1)
+    head = bytearray(stream[:28])
+    head[8] = 99
+    bad = bytes(head) + framing.crc32(bytes(head)).to_bytes(4, "little") + stream[32:]
+    with pytest.raises(ValueError, match="codec id 99"):
+        decompress_sharded(bad, None, gloo1)
+
+
 def test_world1_multihost_file_drivers(gloo1, tmp_path):
     x = _data()
     src, dst, back = tmp_path / "in", tmp_path / "out.dctz", tmp_path / "back"
