@@ -11,8 +11,8 @@ script exits non-zero without a result line):
   1. print the card (``nvidia-smi`` name and power limit);
   2. build the CUDA kernels from ``data_compression_tpu_torch/csrc``,
      and print ``nvcc -Xptxas -v``'s registers, stack and spill bytes of
-     the encode kernels (``_build.ptxas_usage``), requiring 0 stack and
-     0 spill;
+     the encode and compaction kernels (``_build.ptxas_usage``),
+     requiring 0 stack and 0 spill;
   3. at each Huffman arity with kernels (2, 16, 3), run each kernel
      against its plain PyTorch version on the card at the main path's
      shapes (64 MiB = 1024 blocks of 64 KiB, C = 512: a seeded
@@ -20,7 +20,9 @@ script exits non-zero without a result line):
      and 16 is replaced by a complete tree that reaches the length cap)
      and require byte equality of the valid bytes; both encode kernels
      also encode the input with that block's chunk 0 made of L-digit
-     symbols, whose wire bytes fill max_chunk_bytes; the decode kernel
+     symbols, whose wire bytes fill max_chunk_bytes; the compaction
+     kernel also writes into a guarded canvas 7 bytes off 16-byte
+     alignment and must leave the guard bytes alone; the decode kernel
      reads the encode kernel's payloads and must give back the input;
   4. the slice at each arity: ``compress`` -> ``decompress`` of the
      64 MiB input on ``cuda`` must round-trip, with the launch count of
@@ -52,15 +54,18 @@ replaces, launches in that arity's runs of phases 4 and 5, or for the
 tools' kernels in phase 7, each counted from 0, max abs error against
 the plain version, ms per call, plain ms per call, the bound: the
 bytes the call must move at 3.35 TB/s, and library ms, the time of one
-PyTorch call computing the same function, or null; the copy kernel's
-entry also has ``device_ms`` and ``library_device_ms``, device time per
-call by torch.profiler, ``tools.timing.device_ms``).  A time per call is
-the best of 3 trials of back-to-back calls, each at least 0.05 s
+PyTorch call computing the same function, or null; the compaction
+entries have ``device_ms``, the copy kernel's ``device_ms`` and
+``library_device_ms``: device time per call by torch.profiler,
+``tools.timing.device_ms``).  A time per call is the best of 3 trials
+of back-to-back calls, each at least 0.05 s
 (``tools.timing.time_chain``), the lookup variants' the median of
 single launches with the input cold in L2 (``tools.timing.cold_ms``).
-The decode kernel is timed alone, through ``decode_launcher`` (inputs
-checked once); the wrapper ``decode_chunks``, whose checks sync with
-the host on every call, is timed on a line of its own.  The last line
+The decode and compaction kernels are timed alone, through
+``decode_launcher`` and ``compact_launcher`` (inputs checked and
+offsets computed once); the wrappers ``decode_chunks`` and
+``compact_blocks``, whose checks read back from the card on every call,
+are timed on lines of their own.  The last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero without printing
 a result when no CUDA device is available or when the package is not
 beside this script.
@@ -166,11 +171,14 @@ def max_abs_err(a, b, valid) -> int:
 
 @contextmanager
 def plain_kernels(modules):
-    """Swap each kernel wrapper for its plain version (on any device)."""
+    """Swap each kernel wrapper for its plain version (on any device); the
+    compaction's ``total``, a size its plain version does not take, is
+    dropped."""
     saved = []
     for mod, wrapper, ref in modules:
         saved.append((mod, wrapper, getattr(mod, wrapper)))
-        setattr(mod, wrapper, getattr(mod, ref))
+        plain = getattr(mod, ref)
+        setattr(mod, wrapper, lambda *a, total=None, _plain=plain, **k: _plain(*a, **k))
     try:
         yield
     finally:
@@ -196,6 +204,7 @@ def kernel_phase(n: int, data: bytes, mods: dict, dev) -> dict:
     from data_compression_tpu_torch.config import ARITY_MAX_LEN, wire_bytes
     from data_compression_tpu_torch.huffman import batched as hb
     from data_compression_tpu_torch.models.huffman import HuffmanCodec
+    from data_compression_tpu_torch.tools import timing
     from data_compression_tpu_torch.utils.corpora import complete_lengths
 
     L = ARITY_MAX_LEN[n]
@@ -250,16 +259,34 @@ def kernel_phase(n: int, data: bytes, mods: dict, dev) -> dict:
     flat_r = cmp_.compact_blocks_ref(rows, bb)
     if flat.shape != flat_r.shape:
         raise AssertionError(f"compact n={n}: output sizes differ")
+    total = flat.numel()
+    everywhere = torch.ones_like(flat, dtype=torch.bool)
+    # the main path's call, with the total it already holds (no host read)
+    err = max(max_abs_err(flat, flat_r, everywhere),
+              max_abs_err(cmp_.compact_blocks(rows, bb, total=total), flat_r, everywhere))
+    # the kernel alone, into flat's place 7 bytes into a guarded canvas
+    launch = cmp_.compact_launcher(rows, bb)  # checked once; the kernel alone per call
+    canvas = torch.full((total + 32,), 0xA5, dtype=torch.uint8, device=dev)
+    launch(canvas[7 : 7 + total])
+    err = max(err, max_abs_err(canvas[7 : 7 + total], flat_r, everywhere))
+    if bool((canvas[:7] != 0xA5).any()) or bool((canvas[7 + total:] != 0xA5).any()):
+        raise AssertionError(f"compact n={n}: wrote outside its output")
+    log(f"wrapper compact_blocks n={n}: "
+        f"{chain_ms(lambda: cmp_.compact_blocks(rows, bb)):.4f} ms per call (offsets, bounds "
+        "check and total in one host read, launch); with the total given, as the compress "
+        f"path calls it: {chain_ms(lambda: cmp_.compact_blocks(rows, bb, total=total)):.4f} ms "
+        "per call (offsets, launch; no host read)")
     keep = torch.arange(rows.shape[1], device=dev)[None, :] < bb[:, None].long()
     results["compact"] = dict(
-        max_abs_err=max_abs_err(flat, flat_r, torch.ones_like(flat, dtype=torch.bool)),
-        ms=chain_ms(lambda: cmp_.compact_blocks(rows, bb)),
+        max_abs_err=err,
+        ms=chain_ms(launch),
+        device_ms=timing.device_ms(launch),
         plain_ms=chain_ms(lambda: cmp_.compact_blocks_ref(rows, bb), 1),
-        bound_ms=bound_ms(2 * flat.numel() + nbytes_of(bb)),
+        bound_ms=bound_ms(2 * total + nbytes_of(bb)),
         bound_by="bytes",
         library_ms=chain_ms(lambda: torch.masked_select(rows, keep)),
     )
-    del rows, flat_r, keep
+    del rows, flat_r, keep, canvas, everywhere
 
     # decode the encoded payloads, parsed as decompress parses a frame
     nb = wire_bytes(digits.cpu().numpy().astype(np.int64), n)
@@ -307,7 +334,8 @@ def kernel_phase(n: int, data: bytes, mods: dict, dev) -> dict:
     for name, r in results.items():
         log(f"kernel {name} n={n}: max_abs_err {r['max_abs_err']} "
             f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms"
-            + ("" if r["library_ms"] is None else f" library {r['library_ms']:.4f} ms"))
+            + ("" if r["library_ms"] is None else f" library {r['library_ms']:.4f} ms")
+            + ("" if "device_ms" not in r else f"; device {r['device_ms']:.4f} ms"))
     return results
 
 
@@ -495,12 +523,13 @@ def main() -> int:
     _build.lib()
     log(f"kernel build: {time.perf_counter() - t0:.3f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
-    usage = _build.ptxas_usage("huffman_encode.cu")
-    for fn, u in sorted(usage.items()):
-        log(f"ptxas huffman_encode.cu {fn}: {u}")
-    if not usage or any(u.get("stack", 1) or u.get("spill_stores", 1) or u.get("spill_loads", 1)
-                        for u in usage.values()):
-        raise AssertionError("an encode kernel uses stack or spills (nvcc -Xptxas -v above)")
+    for source in ("huffman_encode.cu", "compact.cu"):
+        usage = _build.ptxas_usage(source)
+        for fn, u in sorted(usage.items()):
+            log(f"ptxas {source} {fn}: {u}")
+        if not usage or any(u.get("stack", 1) or u.get("spill_stores", 1)
+                            or u.get("spill_loads", 1) for u in usage.values()):
+            raise AssertionError(f"a kernel of {source} uses stack or spills (nvcc -Xptxas -v above)")
 
     # -- 3. each kernel against its plain version at the main path's shapes
     data = enwik_like(MAIN_BYTES - 64 * 1024, SEED) + deep_code_block(64 * 1024, SEED)

@@ -14,8 +14,9 @@ Two routes, chosen by arity as the JAX codec chooses them:
 
   * n in FAST_ARITIES (2, 3, 16), on the codec's device.  Encode:
     device histogram -> host canonical tables -> encode kernel -> exact
-    block byte totals -> compact kernel -> download of the payload bytes
-    and chunk byte counts -> host payload assembly.  Decode: host payload
+    block byte totals -> download of the chunk digit counts -> compact
+    kernel, sized by their wire bytes (no host read of its own) ->
+    download of the payload bytes -> host payload assembly.  Decode: host payload
     parse -> upload of the payload bytes with per-chunk offsets -> decode
     kernel -> download.
   * any other n (the reference's 9/10-ary experiments) has no bit-field
@@ -195,8 +196,10 @@ class HuffmanCodec(Codec):
         rows, digits, block_bytes = kencode.encode_blocks(
             dev_blocks, dev_lens, dense, self.config.chunk_syms, arity
         )
-        flat = kcompact.compact_blocks(rows, block_bytes)
+        # the digit counts come down first: their wire bytes sum to the
+        # payload total, so the compaction reads nothing back itself
         nb = wire_bytes(digits.cpu().numpy().astype(np.int64), arity)
+        flat = kcompact.compact_blocks(rows, block_bytes, total=int(nb.sum()))
         payloads = self._assemble_payloads(flat.cpu().numpy(), nb, lengths, table_rows)
         return EncodeResult(payloads=payloads, shared_table=shared_table_bytes)
 

@@ -46,7 +46,7 @@ SIGNATURES = {
     # name: argtypes (every entry point returns a cudaError_t as int)
     "dct_huffman_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _I, _P],
     "dct_huffman_encode_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "dct_compact": [_P, _P, _P, _P, _I, _I64, _P],
+    "dct_compact": [_P, _P, _P, _I, _I64, _I64, _P],
     "dct_huffman_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "dct_copy": [_P, _P, _I64, _P],
     "dct_lookup": [_I, _P, _P, _P, _I, _I, _P],

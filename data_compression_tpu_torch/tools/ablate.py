@@ -24,12 +24,21 @@ line on stdout, also written to ``--out``; progress on stderr):
                                      stage 1, 2 - 1, 3 - 2; encode_gbps
   encode_compact_ms                  the compact encode kernel (the
                                      single-device path's) on the same input
+  compact_ms, compact_bytes          the block compaction kernel alone
+                                     (``compact_launcher``: offsets once,
+                                     then the launch) on the compact
+                                     encode's rows, and the payload bytes it
+                                     moves; compact_gbps = bytes / compact_ms
+  compact_wrapper_ms                 ``compact_blocks`` on the same rows:
+                                     offsets, bounds check and total with
+                                     one host read, then the launch
   decode_window_walk_ms, decode_rank_ms, decode_ranksym_ms, decode_store_ms
                                      the decode kernel's stage 1, 2 - 1,
                                      3 - 2, 4 - 3; decode_gbps
   copy_envelope_gbps                 timing.measure_envelope
   device_ms                          {passthrough, passthrough_library,
                                      encode_stage{1,2,3}, encode_compact,
+                                     compact, compact_wrapper,
                                      decode_stage{1..4}:
                                      device ms per call (timing.device_ms)},
                                      against which a chain time shows
@@ -63,6 +72,7 @@ from data_compression_tpu_torch.config import (
 )
 from data_compression_tpu_torch.huffman import batched as hb
 from data_compression_tpu_torch.models.huffman import HuffmanCodec
+from data_compression_tpu_torch.ops.kernels import compact as kcmp
 from data_compression_tpu_torch.ops.kernels import copy as kcopy
 from data_compression_tpu_torch.ops.kernels import decode as kdec
 from data_compression_tpu_torch.ops.kernels import encode as kenc
@@ -222,6 +232,13 @@ def measure(inp: Inputs, min_trial_s: float = 0.25) -> dict:
     report["encode_gbps"] = nbytes / enc[3] / 1e9
     report["encode_compact_ms"] = t(
         "encode_compact", lambda: kenc.encode_blocks(inp.blocks, inp.lens, inp.dense, C, n)) * 1e3
+
+    rows, _, bb = kenc.encode_blocks(inp.blocks, inp.lens, inp.dense, C, n)
+    report["compact_bytes"] = int(bb.long().sum())
+    report["compact_ms"] = t("compact", kcmp.compact_launcher(rows, bb)) * 1e3
+    report["compact_gbps"] = report["compact_bytes"] / report["compact_ms"] / 1e6
+    report["compact_wrapper_ms"] = t("compact_wrapper", lambda: kcmp.compact_blocks(rows, bb)) * 1e3
+    del rows, bb
 
     launch = kdec.decode_launcher(**inp.decode_args)
     dec = {}

@@ -341,6 +341,17 @@ def test_wrappers_reject_bad_cuda_inputs(cuda):
     rows = torch.zeros((2, 64), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
         kcmp.compact_blocks(rows, torch.tensor([65, 0], dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        kcmp.compact_blocks(rows, torch.tensor([-1, 3], dtype=torch.int32, device=cuda))
+    bb = torch.tensor([5, 0], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        kcmp.compact_launcher(rows, bb)(torch.empty(6, dtype=torch.uint8, device=cuda))
+    with pytest.raises(ValueError):
+        kcmp.compact_launcher(rows, bb)(torch.empty(5, dtype=torch.uint8))  # on the CPU
+    with pytest.raises(ValueError):
+        kcmp.compact_blocks(rows, bb, total=-5)
+    with pytest.raises(ValueError):
+        kcmp.compact_blocks(rows[:0], bb[:0], total=5)
     z = torch.zeros((1, 16), dtype=torch.int32, device=cuda)
     args = dict(flat=torch.zeros(4, dtype=torch.uint8, device=cuda),
                 chunk_off=torch.tensor([0, 8], dtype=torch.int64, device=cuda),  # past flat
@@ -350,6 +361,103 @@ def test_wrappers_reject_bad_cuda_inputs(cuda):
                 chunk_syms=16)
     with pytest.raises(ValueError):
         kdec.decode_chunks(**args)
+
+
+def _compact_rows(B, N, src_off, block_bytes, seed, dev):
+    """[B, N] random rows taken from a view ``src_off`` bytes into its
+    storage, and their block byte counts as an int32 tensor."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    store = torch.randint(0, 256, (B * N + 16,), dtype=torch.uint8, device=dev, generator=gen)
+    rows = store[src_off : src_off + B * N].view(B, N)
+    assert rows.data_ptr() % 16 == src_off % 16 and rows.is_contiguous()
+    return rows, torch.tensor(block_bytes, dtype=torch.int32, device=dev)
+
+
+def _guarded_launch(rows, bb, dst_off):
+    """The kernel alone (``compact_launcher``) into a canvas larger than
+    its output, ``dst_off`` bytes off 16-byte alignment; asserts the
+    output equals the plain version and no byte outside it changed."""
+    want = kcmp.compact_blocks_ref(rows, bb)
+    total = want.numel()
+    canvas = torch.full((total + 64,), 0xA5, dtype=torch.uint8, device=rows.device)
+    start = 16 + dst_off
+    assert (canvas.data_ptr() + start) % 16 == dst_off
+    before = kcmp.compact_blocks.launches
+    kcmp.compact_launcher(rows, bb)(canvas[start : start + total])
+    assert kcmp.compact_blocks.launches == before + (total > 0)
+    assert torch.equal(canvas[start : start + total], want)
+    assert bool((canvas[:start] == 0xA5).all()) and bool((canvas[start + total:] == 0xA5).all())
+
+
+@pytest.mark.parametrize("N", [8, 30, 64, 1000, 122880])
+def test_compact_kernel_every_alignment(cuda, N):
+    """Destination alignments 0-15 crossed with source alignments: rows
+    of width N from views 0-15 bytes into their storage; blocks of 0
+    bytes, of 1-15, random, and one that fills its row."""
+    rng = np.random.default_rng(N)
+    B = 24 if N == 122880 else 64
+    for src_off in range(16):
+        bb = rng.integers(0, N + 1, B)
+        bb[rng.integers(0, B, B // 4)] = rng.integers(0, min(N, 15) + 1, B // 4)
+        bb[0], bb[B // 2], bb[-1] = 0, N, rng.integers(1, min(N, 15) + 1)
+        rows, bbt = _compact_rows(B, N, src_off, bb.tolist(), N + src_off, cuda)
+        assert torch.equal(kcmp.compact_blocks(rows, bbt), kcmp.compact_blocks_ref(rows, bbt))
+        for dst_off in range(16):
+            _guarded_launch(rows, bbt, dst_off)
+
+
+@pytest.mark.parametrize("B", [1, 1024, 4096])
+def test_compact_kernel_tiny_and_empty_blocks(cuda, B):
+    """Blocks of 0-15 bytes, several to one 16-byte word, at every
+    destination alignment; a total of 0; B = 1, 1024 and 4096."""
+    rng = np.random.default_rng(B)
+    for N, src_off in ((16, 0), (30, 5), (64, 11)):
+        bb = rng.integers(0, 16, B)
+        bb[rng.random(B) < 0.3] = 0
+        rows, bbt = _compact_rows(B, N, src_off, bb.tolist(), B + N, cuda)
+        for dst_off in range(16):
+            _guarded_launch(rows, bbt, dst_off)
+        zero = torch.zeros_like(bbt)
+        before = kcmp.compact_blocks.launches
+        assert kcmp.compact_blocks(rows, zero).numel() == 0
+        assert kcmp.compact_blocks(rows, zero, total=0).numel() == 0
+        assert kcmp.compact_blocks.launches == before
+        _guarded_launch(rows, zero, 3)
+
+
+@pytest.mark.parametrize("n", ARITIES)
+def test_compact_on_the_compress_path_makes_no_host_read(cuda, n, monkeypatch):
+    """The compress path's call of the compaction (the total given) runs
+    under ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+    synchronising call; the same call without the total raises there."""
+    x = _data()
+    cfg = pt.CodecConfig(arity=n)
+    wrapper = kcmp.compact_blocks
+    calls = []
+
+    def no_sync(rows, block_bytes, total=None):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            flat = wrapper(rows, block_bytes, total=total)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        calls.append((total, rows, block_bytes, flat))
+        return flat
+
+    monkeypatch.setattr(kcmp, "compact_blocks", no_sync)
+    frame = pt.compress(x, cfg, device=cuda)
+    monkeypatch.undo()
+    assert len(calls) == 1 and calls[0][0] == calls[0][3].numel() > 0
+    assert frame == pt.compress(x, cfg, device="cpu")
+    _, rows, bb, flat = calls[0]
+    assert torch.equal(flat, kcmp.compact_blocks_ref(rows, bb))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            kcmp.compact_blocks(rows, bb)  # the checked call reads back once
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def test_copy_kernel_matches_clone(cuda):
@@ -426,7 +534,8 @@ def test_tools_run_on_the_card(cuda):
     report = ablate.run(2, 8, cuda, min_trial_s=0.01)
     keys = {"passthrough_ms", "passthrough_gbps", "passthrough_library_ms", "encode_stage1_ms",
             "encode_stage2_ms", "encode_stage3_ms", "encode_compact_ms", "encode_lookup_ms",
-            "encode_merge_ms", "encode_wire_ms", "encode_gbps", "decode_window_walk_ms", "decode_rank_ms",
+            "encode_merge_ms", "encode_wire_ms", "encode_gbps", "compact_ms", "compact_gbps",
+            "compact_wrapper_ms", "decode_window_walk_ms", "decode_rank_ms",
             "decode_ranksym_ms", "decode_store_ms", "decode_gbps", "copy_envelope_gbps"}
     assert keys <= set(report) and report["arity"] == 2 and report["mb"] == 8
     assert all(np.isfinite(report[k]) for k in keys)
@@ -434,7 +543,8 @@ def test_tools_run_on_the_card(cuda):
                                                                 "ranksym_ms", "store_ms")))
     assert set(report["device_ms"]) == {
         "passthrough", "passthrough_library", *(f"encode_stage{k}" for k in (1, 2, 3)),
-        "encode_compact", *(f"decode_stage{k}" for k in (1, 2, 3, 4))}
+        "encode_compact", "compact", "compact_wrapper", *(f"decode_stage{k}" for k in (1, 2, 3, 4))}
+    assert report["compact_bytes"] > 0
     assert all(0 < v < 1e3 for v in report["device_ms"].values())
     results = microbench.run(cuda, reps=3)
     assert [r["variant"] for r in results] == list(kmb.VARIANTS)
