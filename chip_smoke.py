@@ -12,7 +12,9 @@ script exits non-zero without a result line):
   2. build the CUDA kernels from ``data_compression_tpu_torch/csrc``,
      and print ``nvcc -Xptxas -v``'s registers, stack and spill bytes of
      the encode and compaction kernels (``_build.ptxas_usage``),
-     requiring 0 stack and 0 spill;
+     requiring 0 stack and 0 spill; build the native C runtime
+     (``data_compression_tpu_torch/native/libdctpu.c``, by ``cc``) and
+     print its build seconds and whether it runs with OpenMP;
   3. at each Huffman arity with kernels (2, 16, 3), run each kernel
      against its plain PyTorch version on the card at the main path's
      shapes (64 MiB = 1024 blocks of 64 KiB, C = 512: a seeded
@@ -24,20 +26,26 @@ script exits non-zero without a result line):
      kernel also writes into a guarded canvas 7 bytes off 16-byte
      alignment and must leave the guard bytes alone; the decode kernel
      reads the encode kernel's payloads and must give back the input;
+  3b. the main path's table build: on the 1024 block histograms of the
+     64 MiB input, the native builder's code lengths must equal the
+     plain Python builder's (``capped_lengths_batch_ref``) at n = 2, 16
+     and 3; both host times are printed with the host CPU's model name
+     and ``os.cpu_count()``;
   4. the slice at each arity: ``compress`` -> ``decompress`` of the
      64 MiB input on ``cuda`` must round-trip, with the launch count of
      each of its kernels > 0; then compress / decompress GB/s for the
-     kernel path, and at n = 2 also for the plain path (each kernel
-     wrapper swapped for its plain version);
+     kernel path (tables from the native builder), for the same path
+     with the plain Python table builder, and at n = 2 also for the
+     plain path (each kernel wrapper swapped for its plain version);
   5. the sharded pipeline in a one-rank NCCL group, at each arity:
      ``compress_sharded`` of the 64 MiB input, with per-block and with
      shared tables, must give ``compress``'s frame on ``cuda`` and
      ``decompress_sharded`` must round-trip, with the launch count of
      each of its kernels > 0; then its GB/s, and the time of its
      collectives; the group is destroyed;
-  6. wire parity: the frames of the golden inputs (n = 2, 16 and 3)
-     must hash to the SHA-256 recorded from the JAX package, and decode
-     back;
+  6. wire parity: the frames of the golden inputs (Huffman at n = 2, 16
+     and 3, and the serial codecs) must hash to the SHA-256 recorded from
+     the JAX package, and decode back;
   7. the profiling tools: the copy kernel against ``clone()`` on the
      64 MiB input and each lookup-variant kernel against its plain
      version at B = 128 (byte equality); at each arity the rows-encode
@@ -46,7 +54,13 @@ script exits non-zero without a result line):
      ``tools.ablate`` at 64 MiB per arity and ``tools.microbench``,
      their JSON logged, with the launch count
      of the copy kernel, every lookup variant, the rows-encode and the
-     decode kernel > 0.
+     decode kernel > 0;
+  8. the serial codecs (literal, nybble, small_byte, small_byte with the
+     ISPRINT mode, small_nybble) made for ``cuda``: ``compress`` ->
+     ``decompress`` of the 64 MiB input must round-trip exactly; their
+     ratio, compress / decompress GB/s and route (the native runtime's
+     OpenMP batch drivers on the host, or the pass-through) are printed;
+     a frame with one payload byte flipped must raise ValueError.
 
 The line before the last is a JSON object of the kernels, one entry
 per kernel and arity (name, arity, route, source, the TPU kernel it
@@ -57,7 +71,8 @@ bytes the call must move at 3.35 TB/s, and library ms, the time of one
 PyTorch call computing the same function, or null; the compaction
 entries have ``device_ms``, the copy kernel's ``device_ms`` and
 ``library_device_ms``: device time per call by torch.profiler,
-``tools.timing.device_ms``).  A time per call is the best of 3 trials
+``tools.timing.device_ms``, null where no profiler session held every
+device record).  A time per call is the best of 3 trials
 of back-to-back calls, each at least 0.05 s
 (``tools.timing.time_chain``), the lookup variants' the median of
 single launches with the input cold in L2 (``tools.timing.cold_ms``).
@@ -75,11 +90,13 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import socket
 import sys
 import time
 from contextlib import contextmanager
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 MIB = 1 << 20
@@ -150,6 +167,11 @@ def timed(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def fmt_ms(ms) -> str:
+    """A device reading for the log: ms, or "not measured" (None)."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound_ms(nbytes: int) -> float:
@@ -280,7 +302,7 @@ def kernel_phase(n: int, data: bytes, mods: dict, dev) -> dict:
     results["compact"] = dict(
         max_abs_err=err,
         ms=chain_ms(launch),
-        device_ms=timing.device_ms(launch),
+        device_ms=timing.device_ms_or_none(launch),
         plain_ms=chain_ms(lambda: cmp_.compact_blocks_ref(rows, bb), 1),
         bound_ms=bound_ms(2 * total + nbytes_of(bb)),
         bound_by="bytes",
@@ -335,7 +357,7 @@ def kernel_phase(n: int, data: bytes, mods: dict, dev) -> dict:
         log(f"kernel {name} n={n}: max_abs_err {r['max_abs_err']} "
             f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms"
             + ("" if r["library_ms"] is None else f" library {r['library_ms']:.4f} ms")
-            + ("" if "device_ms" not in r else f"; device {r['device_ms']:.4f} ms"))
+            + ("" if "device_ms" not in r else f"; device {fmt_ms(r['device_ms'])}"))
     return results
 
 
@@ -363,8 +385,8 @@ def tool_kernel_phase(data: bytes, dev) -> dict:
         plain_ms=chain_ms(lambda: kcopy.copy_blocks_ref(x)),
         bound_ms=bound_ms(2 * x.numel()), bound_by="bytes",
         library_ms=chain_ms(lambda: dst.copy_(x)),
-        device_ms=timing.device_ms(lambda: kcopy.copy_blocks(x)),
-        library_device_ms=timing.device_ms(lambda: dst.copy_(x)),
+        device_ms=timing.device_ms_or_none(lambda: kcopy.copy_blocks(x)),
+        library_device_ms=timing.device_ms_or_none(lambda: dst.copy_(x)),
     )
     del x, y, dst, everywhere
 
@@ -386,12 +408,12 @@ def tool_kernel_phase(data: bytes, dev) -> dict:
         log(f"kernel {name}: max_abs_err {r['max_abs_err']} kernel {r['ms']:.4f} ms "
             f"plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms"
             + ("" if r["library_ms"] is None else f" library {r['library_ms']:.4f} ms")
-            + ("" if "device_ms" not in r else f"; device {r['device_ms']:.4f} ms, "
-               f"library device {r['library_device_ms']:.4f} ms"))
+            + ("" if "device_ms" not in r else f"; device {fmt_ms(r['device_ms'])}, "
+               f"library device {fmt_ms(r['library_device_ms'])}"))
     return results
 
 
-def rates(data: bytes, cfg, blob: bytes, label: str, card: str) -> None:
+def rates(data: bytes, cfg, blob: bytes, label: str, card: str, host: str) -> None:
     """Best of 3 compress / decompress GB/s of ``data`` on cuda."""
     from data_compression_tpu_torch import compress, decompress
 
@@ -408,7 +430,76 @@ def rates(data: bytes, cfg, blob: bytes, label: str, card: str) -> None:
     log(f"{label}: compress {gbps['compress_event']:.4f} GB/s (events) "
         f"{gbps['compress_wall']:.4f} GB/s (wall); decompress "
         f"{gbps['decompress_event']:.4f} GB/s (events) "
-        f"{gbps['decompress_wall']:.4f} GB/s (wall); best of 3, {len(data) // MIB} MiB; card {card}")
+        f"{gbps['decompress_wall']:.4f} GB/s (wall); best of 3, {len(data) // MIB} MiB; card {card}; "
+        f"host {host}")
+
+
+def table_phase(data: bytes, dev, host: str) -> None:
+    """The native builder's code lengths against the plain builder's on
+    the main path's 1024 block histograms, at each arity; both host
+    times (native: best of 5; plain: one call)."""
+    import numpy as np
+
+    from data_compression_tpu_torch import CodecConfig, framing, native
+    from data_compression_tpu_torch.config import ARITY_MAX_LEN
+    from data_compression_tpu_torch.huffman import batched as hb
+    from data_compression_tpu_torch.models.huffman import HuffmanCodec
+    from data_compression_tpu_torch.ops.histogram import block_histograms
+
+    cfg = CodecConfig()
+    blocks, lengths = framing.split_blocks(data, cfg.block_size)
+    hists = block_histograms(*HuffmanCodec(cfg, dev).upload_blocks(blocks, lengths)).cpu().numpy()
+    for n in ARITIES:
+        native_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            got = native.huffman_capped_lengths_batch(hists, n, ARITY_MAX_LEN[n])
+            native_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        want = hb.capped_lengths_batch_ref(hists, n)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(got, want):
+            raise AssertionError(f"native code lengths at n={n} differ from the plain builder's")
+        log(f"table build n={n}, {hists.shape[0]} histograms: native == plain; native "
+            f"{min(native_ms):.4f} ms (best of 5, openmp {native.openmp}), plain "
+            f"{plain_ms:.4f} ms; host {host}")
+
+
+SERIAL = [
+    # (label, config kwargs)
+    ("literal", dict(codec="literal")),
+    ("nybble", dict(codec="nybble")),
+    ("small_byte", dict(codec="small_byte")),
+    ("small_byte isprint_literal", dict(codec="small_byte", isprint_literal=True)),
+    ("small_nybble", dict(codec="small_nybble")),
+]
+
+
+def serial_phase(data: bytes, card: str, host: str) -> None:
+    """Each serial codec made for cuda: exact round trip of ``data``,
+    ratio, GB/s and route; one flipped payload byte must raise."""
+    from data_compression_tpu_torch import CodecConfig, compress, decompress, framing, native
+
+    for label, kw in SERIAL:
+        cfg = CodecConfig(**kw)
+        blob = compress(data, cfg, device="cuda")
+        if decompress(blob, device="cuda") != data:
+            raise AssertionError(f"serial {label}: round trip on cuda is not exact")
+        route = ("host, pass-through" if cfg.codec == "literal"
+                 else f"host native, {'OpenMP' if native.openmp else 'serial'}")
+        log(f"serial {label}: {len(data) // MIB} MiB round trip exact, ratio "
+            f"{len(blob) / len(data):.6f}, route {route}")
+        rates(data, cfg, blob, f"serial {label}", card, host)
+        f = framing.unpack_frame(blob)
+        lo = len(blob) - sum(e.comp_len for e in f.entries)
+        corrupt = bytearray(blob)
+        corrupt[(lo + len(blob)) // 2] ^= 0xFF
+        try:
+            decompress(bytes(corrupt), device="cuda")
+        except ValueError as e:
+            log(f"serial {label}: a flipped payload byte raises ValueError ({e})")
+        else:
+            raise AssertionError(f"serial {label}: a flipped payload byte decoded without error")
 
 
 def sharded_phase(data: bytes, blobs: dict, card: str, count_launches) -> dict:
@@ -506,10 +597,12 @@ def main() -> int:
 
     import importlib
 
-    from data_compression_tpu_torch import CodecConfig, compress, decompress
+    from data_compression_tpu_torch import CodecConfig, compress, decompress, native
+    from data_compression_tpu_torch.huffman import batched as hb
     from data_compression_tpu_torch.ops.kernels import _build
     from data_compression_tpu_torch.tools import timing
-    from data_compression_tpu_torch.utils.corpora import deep_code_block, enwik_like
+    from data_compression_tpu_torch.tools.e2e import cpu_model
+    from data_compression_tpu_torch.utils.corpora import GENERATORS, deep_code_block, enwik_like
 
     # -- 1. the card
     card = timing.card()
@@ -530,12 +623,21 @@ def main() -> int:
         if not usage or any(u.get("stack", 1) or u.get("spill_stores", 1)
                             or u.get("spill_loads", 1) for u in usage.values()):
             raise AssertionError(f"a kernel of {source} uses stack or spills (nvcc -Xptxas -v above)")
+    t0 = time.perf_counter()
+    native.load()
+    log(f"native runtime build: {time.perf_counter() - t0:.3f} s "
+        f"(cc {native.build_seconds if native.build_seconds is not None else 'cached'}), "
+        f"openmp {native.openmp}")
 
     # -- 3. each kernel against its plain version at the main path's shapes
     data = enwik_like(MAIN_BYTES - 64 * 1024, SEED) + deep_code_block(64 * 1024, SEED)
     mods = {m: importlib.import_module(f"data_compression_tpu_torch.ops.kernels.{m}")
             for m in {m for _, m, *_ in KERNELS} | {"copy", "microbench"}}
     results = {n: kernel_phase(n, data, mods, dev) for n in ARITIES}
+
+    # -- 3b. the main path's table build: the native builder against the plain one
+    host = f"{cpu_model()}, os.cpu_count() {os.cpu_count()}"
+    table_phase(data, dev, host)
     wrappers = {name: getattr(mods[m], w) for name, m, w, *_ in KERNELS}
     wrappers["copy"] = mods["copy"].copy_blocks
     wrappers.update({f"lookup_{v}": fn for v, fn in mods["microbench"].WRAPPERS.items()})
@@ -568,10 +670,12 @@ def main() -> int:
         blobs[n] = blob
         log(f"slice n={n}: {len(data) // MIB} MiB round trip exact, ratio {len(blob) / len(data):.6f}, "
             f"launches {slice_launches[n]}")
-        rates(data, cfg, blob, f"slice n={n} kernel path", card)
+        rates(data, cfg, blob, f"slice n={n} kernel path", card, host)
+        with mock.patch.object(hb, "capped_lengths_batch", hb.capped_lengths_batch_ref):
+            rates(data, cfg, blob, f"slice n={n} kernel path, plain table builder", card, host)
         if n == 2:
             with plain_kernels([(mods[m], w, ref) for _, m, w, ref, *_ in KERNELS]):
-                rates(data, cfg, blob, "slice n=2 plain path", card)
+                rates(data, cfg, blob, "slice n=2 plain path", card, host)
 
     # -- 5. the sharded pipeline in a one-rank NCCL group
     sharded_launches = sharded_phase(data, blobs, card, count_launches)
@@ -579,9 +683,10 @@ def main() -> int:
     # -- 6. wire parity with the JAX package's recorded hashes
     golden = json.loads((ROOT / "tests" / "data" / "torch_golden.json").read_text())
     for case in golden["cases"]:
-        x = (enwik_like(case["size"], case["seed"]) if case["gen"] == "enwik_like"
-             else deep_code_block(case["size"], case["seed"]))
-        cfg = CodecConfig(arity=case["arity"], shared_table=case["shared_table"])
+        x = GENERATORS[case["gen"]](case["size"], case["seed"])
+        cfg = CodecConfig(codec=case["codec"], arity=case["arity"],
+                          shared_table=case["shared_table"],
+                          isprint_literal=case["isprint_literal"])
         f = compress(x, cfg, device="cuda")
         digest = hashlib.sha256(f).hexdigest()
         if digest != case["sha256"] or len(f) != case["length"]:
@@ -611,6 +716,9 @@ def main() -> int:
     for r in variants:
         log(f"tools.microbench: {json.dumps(r)}")
     log(f"tools launches {tool_launches}; card {card}")
+
+    # -- 8. the serial codecs, made for cuda (they run on the host)
+    serial_phase(data, card, host)
 
     log(f"card: {card}")
     print(json.dumps({"kernels": [

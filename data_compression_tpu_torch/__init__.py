@@ -5,14 +5,20 @@ reference) to PyTorch with hand-written CUDA kernels for Hopper
 (``sm_90a``).  Its containers are byte-identical to the reference's.
 This package imports torch and never jax.
 
-Ported so far: the n-ary canonical Huffman codec through ``compress`` /
-``decompress`` / ``roundtrip``, the CLI (``python -m
-data_compression_tpu_torch``) and the sharded pipeline on
-``torch.distributed`` (``parallel``).  Every entry point takes ``device``
-explicitly; at arities 2, 3 and 16 on a CUDA device the encode,
-compaction and decode run in the kernels under ``csrc/``, on the CPU in
-their plain PyTorch versions.  Every other arity runs the pure-Python
-host path on any device, as in the reference.
+Ported so far: all five codecs through ``compress`` / ``decompress`` /
+``roundtrip`` and the CLI (``python -m data_compression_tpu_torch``),
+the sharded pipeline on ``torch.distributed`` (``parallel``, Huffman
+only as in the reference), the native C runtime (``native``) and the
+profiling tools (``tools``).  Every entry point takes ``device``
+explicitly.  The n-ary canonical Huffman codec builds its code lengths
+in the native runtime; at arities 2, 3 and 16 on a CUDA device its
+encode, compaction and decode run in the kernels under ``csrc/``, on the
+CPU in their plain PyTorch versions, and every other arity runs the
+pure-Python host path on any device, as in the reference.  The serial
+codecs (``literal``, ``nybble``, ``small_byte``, ``small_nybble``) run
+on the host in the native runtime's OpenMP batch drivers, the JAX
+package's production route, whatever the device; made for ``cuda``
+they raise where no CUDA device is present.
 """
 
 from data_compression_tpu_torch.api import compress, decompress, roundtrip

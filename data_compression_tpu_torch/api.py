@@ -3,8 +3,9 @@
 
 Split into blocks -> encode the blocks on ``device`` -> universal
 LITERAL fallback -> frame; and the inverse with per-block CRC checks.
-Every entry point takes the device explicitly; nothing picks one.
-Streaming and file drivers are not ported yet.
+Every entry point takes the device explicitly; nothing picks one.  The
+serial codecs run on the host whatever the device (``models/base.py``
+``HostCodec``).  Streaming and file drivers are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from data_compression_tpu_torch.utils.crc import crc32, crc32_blocks
 
 BytesLike = Union[bytes, bytearray, memoryview, np.ndarray]
 
+STATS_CODECS = ("nybble", "small_byte", "small_nybble")
+
 
 def _as_bytes(data: BytesLike) -> bytes:
     if isinstance(data, np.ndarray):
@@ -33,16 +36,31 @@ def compress(
     config: Optional[CodecConfig] = None,
     meta: Optional[bytes] = None,
     device="cuda",
+    stats=None,
 ) -> bytes:
     """Compress a byte stream into a framed container on ``device``.
 
     ``meta`` attaches an annotation block that decoders skip (raw_len 0,
-    CRC of the annotation bytes themselves)."""
+    CRC of the annotation bytes themselves).
+
+    ``stats``: optional ``utils.debug.CodecStats`` collecting per-context
+    prediction/dictionary hit counters during encode (the reference's
+    times_used_directly, nybble_compression.c:543).  Supported by the
+    serial codecs (STATS_CODECS); collection routes their encode
+    through the host path (byte-identical payloads)."""
     config = config or CodecConfig()
     raw = _as_bytes(data)
     blocks, lengths = framing.split_blocks(raw, config.block_size)
     codec = get_codec(config, device)
-    result = codec.encode_blocks(blocks, lengths)
+    if stats is not None:
+        if config.codec not in STATS_CODECS:
+            raise ValueError(
+                f"stats collection supports codecs {STATS_CODECS}, "
+                f"not {config.codec!r}"
+            )
+        result = codec.encode_blocks(blocks, lengths, stats=stats)
+    else:
+        result = codec.encode_blocks(blocks, lengths)
     return pack_blocks(config, len(raw), blocks, lengths, result, meta)
 
 
@@ -90,10 +108,16 @@ def pack_blocks(config: CodecConfig, total_len: int, blocks: np.ndarray,
 
 def decompress(data: BytesLike, device="cuda") -> bytes:
     """Decompress one binary framed container on ``device``.  The format
-    parameters come from the frame."""
+    parameters come from the frame.  A serial-codec frame stores no chunk
+    size and its codec reads none, so its config takes ``chunk_syms =
+    block_size``: the original's 4096 fails validation for every block
+    size above 4096 that 4096 does not divide."""
     raw = _as_bytes(data)
     frame = framing.unpack_frame(raw)
-    chunk_syms = frame.chunk_syms or min(4096, frame.block_size)
+    if frame.codec_name == "huffman":
+        chunk_syms = frame.chunk_syms or min(4096, frame.block_size)
+    else:
+        chunk_syms = frame.block_size
     cfg = CodecConfig(
         codec=frame.codec_name,
         arity=frame.arity if frame.codec_name == "huffman" else 2,

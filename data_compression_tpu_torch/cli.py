@@ -8,8 +8,10 @@ Usage:
   python -m data_compression_tpu_torch info       IN
   (use '-' for stdin/stdout; the device defaults to cuda)
 
-``decompress`` and ``info`` read every frame of a file, so the JAX
-package's streamed containers (concatenated frames) work too.
+Codecs (``-c``): huffman, literal, nybble, small_byte, small_nybble; the
+serial ones run on the host whatever the device.  ``decompress`` and
+``info`` read every frame of a file, so the JAX package's streamed
+containers (concatenated frames) work too.
 """
 
 from __future__ import annotations
@@ -58,7 +60,21 @@ def _config(args) -> CodecConfig:
         block_size=args.block_size,
         chunk_syms=args.chunk_syms,
         shared_table=args.shared_table,
+        isprint_literal=args.isprint_literal,
     )
+
+
+def _stats(args):
+    """A CodecStats for ``--stats`` on a serial codec, else None."""
+    if not args.stats:
+        return None
+    if args.codec not in api.STATS_CODECS:
+        print(f"--stats supports codecs {api.STATS_CODECS}; ignored for {args.codec}",
+              file=sys.stderr)
+        return None
+    from data_compression_tpu_torch.utils.debug import CodecStats
+
+    return CodecStats(16 if args.codec == "nybble" else 32)
 
 
 def main(argv=None) -> int:
@@ -78,6 +94,19 @@ def main(argv=None) -> int:
         sp.add_argument("--block-size", type=int, default=64 * 1024)
         sp.add_argument("--chunk-syms", type=int, default=512)
         sp.add_argument("--shared-table", action="store_true")
+        sp.add_argument(
+            "--isprint-literal", action="store_true",
+            help="small_byte: ISPRINT_IS_ALWAYS_LITERAL (0x1f) block "
+            "mode for all-printable blocks (small_compression.c:36)",
+        )
+        sp.add_argument(
+            "--stats", action="store_true",
+            help="serial codecs (nybble/small_*): print per-context "
+            "prediction/dictionary hit rates after compress (the "
+            "reference's times_used_directly counters, "
+            "nybble_compression.c:543); routes encode through the "
+            "host path",
+        )
         add_device(sp)
 
     sp = sub.add_parser("compress", help="compress IN to OUT")
@@ -101,8 +130,9 @@ def main(argv=None) -> int:
 
     if args.cmd == "compress":
         data = _read(args.input)
+        stats = _stats(args)
         t0 = time.perf_counter()
-        out = api.compress(data, _config(args), device=args.device)
+        out = api.compress(data, _config(args), device=args.device, stats=stats)
         dt = time.perf_counter() - t0
         _write(args.output, out)
         print(
@@ -110,6 +140,8 @@ def main(argv=None) -> int:
             f"{dt:.3f}s on {args.device})",
             file=sys.stderr,
         )
+        if stats is not None:
+            print(f"stats: {stats.summary()}", file=sys.stderr)
         return 0
 
     if args.cmd == "decompress":
@@ -126,13 +158,16 @@ def main(argv=None) -> int:
 
     if args.cmd == "roundtrip":
         data = _read(args.input)
-        out = api.compress(data, _config(args), device=args.device)
+        stats = _stats(args)
+        out = api.compress(data, _config(args), device=args.device, stats=stats)
         ok = api.decompress(out, device=args.device) == data
         print(
             f"{'OK' if ok else 'MISMATCH'}: {len(data)} -> {len(out)} "
             f"(ratio {len(out)/max(1,len(data)):.4f})",
             file=sys.stderr,
         )
+        if stats is not None:
+            print(f"stats: {stats.summary()}", file=sys.stderr)
         return 0 if ok else 1
 
     if args.cmd == "info":

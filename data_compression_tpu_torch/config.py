@@ -3,8 +3,9 @@
 The format fields, their defaults and their validation are the JAX
 package's, so the same ``CodecConfig`` gives the same container bytes.
 The TPU execution knobs (``use_pallas``, ``use_device``, ``use_scan``)
-are gone: where the port runs is the ``device`` argument of each entry
-point, and which route a Huffman arity takes is ``FAST_ARITIES``.
+and the reserved ``level`` are gone: where the port runs is the
+``device`` argument of each entry point, and which route a Huffman arity
+takes is ``FAST_ARITIES``.
 """
 
 from __future__ import annotations
@@ -81,6 +82,9 @@ class CodecConfig:
       chunk_syms: symbols per intra-block chunk (Huffman parallel unit).
       shared_table: if True, one Huffman table for the whole stream; if
         False, a table per block.
+      isprint_literal: small_byte only: emit the ISPRINT_IS_ALWAYS_LITERAL
+        (0x1f) stream for all-printable blocks (small_compression.c:36).
+        It sets those blocks' type byte, so it is part of the wire format.
     """
 
     codec: str = "huffman"
@@ -88,6 +92,7 @@ class CodecConfig:
     block_size: int = DEFAULT_BLOCK_SIZE
     chunk_syms: int = DEFAULT_CHUNK_SYMS
     shared_table: bool = False
+    isprint_literal: bool = False
 
     def __post_init__(self):
         if self.codec not in CODEC_IDS:

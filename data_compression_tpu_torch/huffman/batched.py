@@ -3,8 +3,11 @@
 Jax-free copy of ``data_compression_tpu/huffman/batched.py``; the tests
 hold every function here equal to its original.  Differences:
 
-  * ``capped_lengths_batch`` is the pure-Python branch only; the native
-    C two-queue builder is not ported yet.
+  * ``capped_lengths_batch`` runs the port's own copy of the native C
+    two-queue builder (``native``, OpenMP across blocks) and has no
+    Python fallback; its plain version ``capped_lengths_batch_ref`` (the
+    original's pure-Python branch) serves the tests and the rare
+    alphabet above 256 symbols.
   * ``BITS_PER_DIGIT`` and ``PACKED_LEN_SHIFT`` are defined here (the
     originals live in JAX modules).
   * ``TableBatch.from_arrays`` takes the JAX package's table fields, and
@@ -19,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from data_compression_tpu_torch import native
 from data_compression_tpu_torch.config import ARITY_MAX_LEN
 from data_compression_tpu_torch.huffman.canonical import CanonicalTable
 from data_compression_tpu_torch.huffman.tree import huffman_lengths
@@ -34,8 +38,18 @@ PACKED_LEN_SHIFT = {2: ARITY_MAX_LEN[2] * BITS_PER_DIGIT[2],
 
 def capped_lengths_batch(hists: np.ndarray, arity: int) -> np.ndarray:
     """[B, S] histograms -> [B, S] int32 canonical code lengths under
-    the per-arity cap: frequencies are halved until the optimal tree
-    fits."""
+    the per-arity cap, by the native builder (``dct_huffman_capped_lengths_batch``)
+    whenever S <= 256, as the original; row-identical to
+    ``capped_lengths_batch_ref``."""
+    hists = np.ascontiguousarray(hists, np.int64)
+    if hists.shape[1] <= 256:
+        return native.huffman_capped_lengths_batch(hists, arity, ARITY_MAX_LEN[arity])
+    return capped_lengths_batch_ref(hists, arity)
+
+
+def capped_lengths_batch_ref(hists: np.ndarray, arity: int) -> np.ndarray:
+    """Plain version of ``capped_lengths_batch``, one block at a time in
+    Python: frequencies are halved until the optimal tree fits the cap."""
     hists = np.ascontiguousarray(hists, np.int64)
     cap = ARITY_MAX_LEN[arity]
     out = np.empty(hists.shape, np.int32)

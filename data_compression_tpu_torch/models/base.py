@@ -48,3 +48,18 @@ class Codec(abc.ABC):
         shared_table: Optional[bytes] = None,
     ) -> List[bytes]:
         """Decode payloads back to raw block bytes."""
+
+
+class HostCodec(Codec):
+    """A codec whose work runs on the host, in the native runtime or in
+    Python, whatever ``device`` it was made for: the serial codecs, whose
+    production route in the JAX package is its native batch drivers.
+    One made for a CUDA device raises RuntimeError where there is none,
+    so no call on ``cuda`` quietly runs on a machine without a card."""
+
+    def __init__(self, config: CodecConfig, device="cuda"):
+        super().__init__(config, device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{self.name} codec made for {self.device}, but no CUDA device is available"
+            )

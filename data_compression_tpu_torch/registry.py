@@ -1,12 +1,11 @@
-"""Codec registry — maps codec names to implementations.  Only
-``huffman`` is ported; every other codec of ``CODEC_IDS`` raises
-NotImplementedError."""
+"""Codec registry — maps codec names to implementations (all five
+codecs of ``CODEC_IDS``); an unknown name raises ValueError."""
 
 from __future__ import annotations
 
 from typing import Dict
 
-from data_compression_tpu_torch.config import CODEC_IDS, CodecConfig
+from data_compression_tpu_torch.config import CodecConfig
 
 _REGISTRY: Dict[str, type] = {}
 
@@ -24,7 +23,14 @@ def _ensure_loaded():
     if _REGISTRY:
         return
     from data_compression_tpu_torch.models.huffman import HuffmanCodec
+    from data_compression_tpu_torch.models.literal import LiteralCodec
+    from data_compression_tpu_torch.models.nybble import NybbleCodec
+    from data_compression_tpu_torch.models.small import SmallByteCodec, SmallNybbleCodec
 
+    register_codec("literal", LiteralCodec)
+    register_codec("nybble", NybbleCodec)
+    register_codec("small_byte", SmallByteCodec)
+    register_codec("small_nybble", SmallNybbleCodec)
     register_codec("huffman", HuffmanCodec)
 
 
@@ -33,9 +39,5 @@ def get_codec(config: CodecConfig, device="cuda"):
     try:
         cls = _REGISTRY[config.codec]
     except KeyError:
-        if config.codec in CODEC_IDS:
-            raise NotImplementedError(
-                f"codec {config.codec!r} is not yet ported"
-            ) from None
         raise ValueError(f"unknown codec {config.codec!r}") from None
     return cls(config, device)

@@ -5,5 +5,6 @@
 
 Counterparts of the JAX package's ``tools/ablate.py`` and
 ``tools/microbench.py``.  They time on a CUDA device (``timing``); with
-``--smoke`` they run a tiny CPU check instead.
+``--smoke`` they run a tiny check instead, on ``--device`` (default
+cuda, as every entry point; ``--device cpu`` runs the plain versions).
 """

@@ -2,7 +2,7 @@
 device, with the compact encode kernel beside them.
 
     python -m data_compression_tpu_torch.tools.ablate [arity] [mb] [--out FILE] [--device cuda]
-    python -m data_compression_tpu_torch.tools.ablate [arity] --smoke
+    python -m data_compression_tpu_torch.tools.ablate [arity] --smoke [--device cpu]
 
 Counterpart of the JAX package's ``tools/ablate.py``.  The input is ``mb``
 MiB (default 64: 8 MiB would sit in the 50 MB L2) of the seeded
@@ -40,11 +40,14 @@ line on stdout, also written to ``--out``; progress on stderr):
                                      encode_stage{1,2,3}, encode_compact,
                                      compact, compact_wrapper,
                                      decode_stage{1..4}:
-                                     device ms per call (timing.device_ms)},
-                                     against which a chain time shows
-                                     whether the device or the host set it
+                                     device ms per call (timing.device_ms),
+                                     null where no profiler session was
+                                     whole: not measured}, against which a
+                                     chain time shows whether the device or
+                                     the host set it
 
-``--smoke`` runs on the CPU (unless ``--device`` says otherwise) one
+``--smoke`` runs on ``--device`` (default cuda, as every entry point;
+``--device cpu`` runs the plain versions) one
 16 KiB + 8 KiB input at ``chunk_syms`` = 128 through the rows encode and
 the decode (their plain versions on the CPU) at every stage, checks each
 stage's observable against its definition and the round trip, times
@@ -209,7 +212,7 @@ def measure(inp: Inputs, min_trial_s: float = 0.25) -> dict:
         """Seconds per call of ``step`` in a chain; its device ms per
         call goes into ``device_ms[name]``."""
         per = timing.time_chain(step, min_trial_s=min_trial_s)
-        device[name] = timing.device_ms(step)
+        device[name] = timing.device_ms_or_none(step)
         _progress(f"{name}: {per * 1e3} ms, device {device[name]} ms")
         return per
 
@@ -263,8 +266,10 @@ def run(arity: int = 2, mb: int = 64, device="cuda", min_trial_s: float = 0.25) 
     return report
 
 
-def smoke(arity: int = 2, device="cpu") -> bool:
+def smoke(arity: int = 2, device="cuda") -> bool:
     """Two blocks (16 KiB + 8 KiB, chunk_syms 128) through every stage."""
+    if torch.device(device).type == "cuda":
+        timing.require_cuda(device)  # no card: raise, never run elsewhere
     S = 128 * LANES
     inp = prepare(enwik_like(S + S // 2, SEED), arity, device, block_size=S, chunk_syms=128)
     check_stages(inp)
@@ -281,12 +286,12 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("mb", nargs="?", type=int, default=64)
     ap.add_argument("--out", default=None, help="also write the report to this file")
     ap.add_argument("--smoke", action="store_true", help="tiny check, no timing")
-    ap.add_argument("--device", default=None,
-                    help="cuda (default) or, with --smoke, cpu (default there)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; --smoke also runs on cpu)")
     args = ap.parse_args(argv)
     if args.smoke:
-        return 0 if smoke(args.arity, args.device or "cpu") else 1
-    report = run(args.arity, args.mb, args.device or "cuda")
+        return 0 if smoke(args.arity, args.device) else 1
+    report = run(args.arity, args.mb, args.device)
     report["card"] = timing.card()
     text = json.dumps(report)
     print(text)

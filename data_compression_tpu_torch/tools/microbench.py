@@ -20,8 +20,9 @@ and ``stage1_like`` (``library_call``: ``Tensor.copy_`` for
 ``passthrough`` and ``widen_i32``, else ``torch.gather`` on the flattened
 table narrowed to uint8, writing the same 8 MiB uint8 result).
 
-``--smoke`` runs every variant at B = 2 on ``--device`` (default: the
-CPU) against its plain version, times nothing, and prints
+``--smoke`` runs every variant at B = 2 on ``--device`` (default cuda,
+as every entry point; ``--device cpu`` runs the plain versions) against
+its plain version, times nothing, and prints
 ``{"smoke": true, "variants": 10, "ok": true}`` last.
 """
 
@@ -104,9 +105,11 @@ def run(device="cuda", reps: int = 30):
     return results
 
 
-def smoke(device) -> bool:
+def smoke(device="cuda") -> bool:
     """Every variant at B = 2 against its plain version; prints one line
     per variant and the summary last."""
+    if torch.device(device).type == "cuda":
+        timing.require_cuda(device)  # no card: raise, never run elsewhere
     s, tables = make_inputs(2, device)
     ok = True
     for name in kmb.VARIANTS:
@@ -122,12 +125,12 @@ def smoke(device) -> bool:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m data_compression_tpu_torch.tools.microbench")
     ap.add_argument("--smoke", action="store_true", help="tiny check, no timing")
-    ap.add_argument("--device", default=None,
-                    help="cuda (default) or, with --smoke, cpu (default there)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; --smoke also runs on cpu)")
     args = ap.parse_args(argv)
     if args.smoke:
-        return 0 if smoke(args.device or "cpu") else 1
-    dev = timing.require_cuda(args.device or "cuda")
+        return 0 if smoke(args.device) else 1
+    dev = timing.require_cuda(args.device)
     print(json.dumps({"card": timing.card(), "device": torch.cuda.get_device_name(dev),
                       "B": B, "C": C, "lanes": LANES,
                       "timing": "median of 30 per-launch CUDA events, input cold in L2"}))

@@ -12,13 +12,21 @@ from __future__ import annotations
 
 import statistics
 import subprocess
+import time
+import warnings
 
 import torch
 
 FLUSH_BYTES = 256 << 20  # > 5x the H100's 50 MB L2
 TRIALS = 3
 MAX_ITERS = 4096
-PROFILE_SESSIONS = 3  # device_ms: sessions tried before it gives up
+PROFILE_SESSIONS = 6  # device_ms: sessions of each kind tried before it gives up
+WINDOW_PAD_S = 0.05  # device_ms: first idle host time at each end of a profiler session
+MAX_WINDOW_PAD_S = 0.4  # device_ms: the pad doubles after each session that is not whole
+
+
+class IncompleteProfile(RuntimeError):
+    """No torch.profiler session of ``device_ms`` held every device record."""
 
 
 def require_cuda(device) -> torch.device:
@@ -73,32 +81,77 @@ def time_chain(step, *, iters: int = 12, min_trial_s: float = 0.25) -> float:
     return best
 
 
+def _device_records(step, calls: int, pad_s: float):
+    """(device records, their summed µs) of ``calls`` calls of ``step()``
+    in one torch.profiler session: the kernels and copies it recorded.
+    The session's window is padded by ``pad_s`` of idle host time at each
+    end: a device record reaches the host clock through an estimate, and
+    the profiler drops records it places outside the window, so a record
+    near either end could otherwise go missing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(events), sum(e.device_time_total for e in events)
+
+
 def device_ms(step, iters: int = 20) -> float:
     """Mean device ms per call of ``step()``: the summed durations of the
     kernels and copies that ``iters`` calls run on the device, as
     torch.profiler records them, over ``iters``.  Read beside
     ``time_chain``: where the chain's time per call exceeds it, the host's
-    enqueue of each call, not the device, sets the chain's pace.  A
-    profiler session now and then records no device activity at all (seen
-    on an H100 host, at random in a long process); such a session is run
-    again, up to ``PROFILE_SESSIONS`` sessions in all.  Raises when none
-    records device work."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    enqueue of each call, not the device, sets the chain's pace.
 
+    A profiler session may drop records: on an H100 host a session now and
+    then held none, and late in a long process every one-call session of
+    some steps held none, padded or not.  So a first session of one call
+    counts the device records per call (run again while it holds none),
+    and a timed session counts only when it holds exactly ``iters`` times
+    that many.  A session that falls short is run again with its window
+    pad doubled (from ``WINDOW_PAD_S`` up to ``MAX_WINDOW_PAD_S``; see
+    ``_device_records``), up to ``PROFILE_SESSIONS`` of each kind; raises
+    IncompleteProfile, naming the counts, when none is whole."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_ms needs a CUDA device")
     step()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_SESSIONS):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                step()
-            torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA)
-        if us > 0:
+    pad = WINDOW_PAD_S
+    counted = []
+    while len(counted) < PROFILE_SESSIONS and not any(counted):
+        if counted:
+            pad = min(2 * pad, MAX_WINDOW_PAD_S)
+        counted.append(_device_records(step, 1, pad)[0])
+    want = counted[-1] * iters
+    seen = []
+    while want and len(seen) < PROFILE_SESSIONS:
+        if seen:
+            pad = min(2 * pad, MAX_WINDOW_PAD_S)
+        n, us = _device_records(step, iters, pad)
+        if n == want:
             return us / iters * 1e-3
-    raise RuntimeError(f"torch.profiler recorded no device time in {PROFILE_SESSIONS} sessions")
+        seen.append(n)
+    raise IncompleteProfile(
+        f"torch.profiler recorded no whole session: the one-call sessions held {counted} "
+        f"device records, so {want} were expected of {iters} calls; the timed sessions "
+        f"held {seen}"
+    )
+
+
+def device_ms_or_none(step, iters: int = 20):
+    """``device_ms``, or None (not measured, with a RuntimeWarning that
+    names the counts) where no profiler session was whole: for readings
+    that sit beside a chain time and check nothing."""
+    try:
+        return device_ms(step, iters)
+    except IncompleteProfile as e:
+        warnings.warn(f"device time not measured: {e}", RuntimeWarning, stacklevel=2)
+        return None
 
 
 def cold_ms(fn, reps: int, device) -> float:

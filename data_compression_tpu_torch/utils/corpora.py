@@ -44,6 +44,13 @@ def enwik_like(nbytes: int, seed: int) -> bytes:
     return ENWIK_ALPHABET[np.searchsorted(cdf, u, side="right")].tobytes()
 
 
+def printable_like(nbytes: int, seed: int) -> bytes:
+    """``enwik_like`` with its one non-printable byte, ``\\n``, made a
+    space: every byte in 0x20-0x7E, so small_byte's ISPRINT mode takes
+    every block."""
+    return enwik_like(nbytes, seed).replace(b"\n", b" ")
+
+
 def deep_code_block(size: int, seed: int) -> bytes:
     """One block whose n=2 Huffman code reaches the 15-digit cap:
     symbols 0..15 with Fibonacci frequencies, in a seeded order."""
@@ -75,3 +82,11 @@ def complete_lengths(arity: int, max_len: int, n_symbols: int) -> np.ndarray:
     row = np.zeros(256, np.int32)
     row[:n_symbols] = sorted(lengths)
     return row
+
+
+# the generators by name, as the golden record names them
+GENERATORS = {
+    "enwik_like": enwik_like,
+    "printable_like": printable_like,
+    "deep_code_block": deep_code_block,
+}

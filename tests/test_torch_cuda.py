@@ -7,12 +7,16 @@ machine with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Tolerance: exact — valid output bytes must be equal.
 """
 
+import hashlib
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 import data_compression_tpu_torch as pt
-from data_compression_tpu_torch import framing
+from data_compression_tpu_torch import framing, native
 from data_compression_tpu_torch.config import ARITY_MAX_LEN, max_chunk_bytes, wire_bytes
 from data_compression_tpu_torch.huffman import batched as hb
 from data_compression_tpu_torch.huffman.batched import to_device
@@ -24,11 +28,19 @@ from data_compression_tpu_torch.ops.kernels import encode as kenc
 from data_compression_tpu_torch.ops.kernels import microbench as kmb
 from data_compression_tpu_torch.parallel import compress_sharded, decompress_sharded, make_mesh
 from data_compression_tpu_torch.parallel import multihost
-from data_compression_tpu_torch.tools import ablate, microbench
-from data_compression_tpu_torch.utils.corpora import complete_lengths, deep_code_block, enwik_like
+from data_compression_tpu_torch.tools import ablate, microbench, timing
+from data_compression_tpu_torch.utils.corpora import (
+    GENERATORS,
+    complete_lengths,
+    deep_code_block,
+    enwik_like,
+    printable_like,
+)
 
 pytestmark = pytest.mark.cuda
 ARITIES = [2, 16, 3]
+GOLDEN = Path(__file__).parent / "data" / "torch_golden.json"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 
 
 @pytest.fixture
@@ -550,3 +562,70 @@ def test_tools_run_on_the_card(cuda):
     assert [r["variant"] for r in results] == list(kmb.VARIANTS)
     assert all(r["ms"] > 0 and r["gbps"] > 0 for r in results)
     assert {r["variant"] for r in results if "library_ms" in r} == set(microbench.LIBRARY_VARIANTS)
+
+
+@pytest.mark.parametrize("n", ARITIES)
+def test_main_path_tables_come_from_the_native_builder(cuda, n, monkeypatch):
+    """A 64 MiB compress on cuda (chip_smoke.py's input) builds its 1024
+    blocks' code lengths in one native call, never in the plain builder,
+    and its frame is the plain builder's; the golden Huffman cases of
+    this arity hash as recorded."""
+    data = enwik_like((64 << 20) - 65536, 7) + deep_code_block(65536, 7)
+    cfg = pt.CodecConfig(arity=n)
+    calls = []
+    real = native.huffman_capped_lengths_batch
+    monkeypatch.setattr(native, "huffman_capped_lengths_batch",
+                        lambda h, *a: calls.append(h.shape) or real(h, *a))
+
+    def plain(*a):
+        raise AssertionError("the plain builder ran on the main path")
+
+    monkeypatch.setattr(hb, "capped_lengths_batch_ref", plain)
+    frame = pt.compress(data, cfg, device=cuda)
+    assert calls == [(1024, 256)]
+    monkeypatch.undo()
+    monkeypatch.setattr(hb, "capped_lengths_batch", hb.capped_lengths_batch_ref)
+    assert pt.compress(data, cfg, device=cuda) == frame
+    monkeypatch.undo()
+    assert pt.decompress(frame, device=cuda) == data
+    for case in json.loads(GOLDEN.read_text())["cases"]:
+        if case["codec"] == "huffman" and case["arity"] == n:
+            f = pt.compress(GENERATORS[case["gen"]](case["size"], case["seed"]),
+                            pt.CodecConfig(arity=n, shared_table=case["shared_table"]),
+                            device=cuda)
+            assert (len(f), hashlib.sha256(f).hexdigest()) == (case["length"], case["sha256"])
+
+
+SERIAL = [("literal", {}), ("nybble", {}), ("small_byte", {}),
+          ("small_byte", {"isprint_literal": True}), ("small_nybble", {})]
+
+
+@pytest.mark.parametrize("codec,kw", SERIAL, ids=["literal", "nybble", "small_byte",
+                                                  "small_byte_isprint", "small_nybble"])
+def test_serial_codecs_round_trip_on_cuda(cuda, codec, kw):
+    """Made for cuda, the serial codecs run on the host: the frame is the
+    CPU's and round-trips."""
+    x = enwik_like(300_000, 64) + printable_like(65536, 65) + bytes(range(256)) * 40
+    cfg = pt.CodecConfig(codec=codec, **kw)
+    frame = pt.compress(x, cfg, device=cuda)
+    assert frame == pt.compress(x, cfg, device="cpu")
+    assert pt.decompress(frame, device=cuda) == x
+
+
+def test_serial_codec_for_cuda_with_cuda_hidden_raises(cuda, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for codec, kw in SERIAL:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pt.compress(b"abc", pt.CodecConfig(codec=codec, **kw), device=cuda)
+
+
+def test_device_ms_of_the_copy_is_at_or_above_its_hbm_bound(cuda):
+    """No whole profiler session can read the copy of 64 MiB faster than
+    device memory moves its 128 MiB."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randint(0, 256, (64 << 20,), dtype=torch.uint8, device=cuda, generator=gen)
+    bound_ms = 2 * x.numel() / HBM_BYTES_PER_S * 1e3
+    assert timing.device_ms(lambda: kcopy.copy_blocks(x)) >= bound_ms
+    dst = torch.empty_like(x)
+    assert timing.device_ms(lambda: dst.copy_(x)) >= bound_ms
+

@@ -76,6 +76,11 @@ def test_import_hygiene():
         "import data_compression_tpu_torch.ops.kernels.decode\n"
         "import data_compression_tpu_torch.models.huffman\n"
         "import data_compression_tpu_torch.utils.corpora\n"
+        "import data_compression_tpu_torch.native\n"
+        "import data_compression_tpu_torch.models.literal\n"
+        "import data_compression_tpu_torch.models.nybble\n"
+        "import data_compression_tpu_torch.models.small\n"
+        "import data_compression_tpu_torch.utils.debug\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'data_compression_tpu' or m.startswith('data_compression_tpu.')]\n"
         "assert not bad, bad\n"
@@ -100,6 +105,72 @@ def test_constants_match():
     for C in (16, 128, 512, 4096):
         for n in (2, 3, 16):
             assert pconfig.max_chunk_bytes(C, n) == j_max_chunk_bytes(C, n)
+
+
+def test_serial_codec_constants_match():
+    """The serial modules' wire constants, tables and dictionary defaults
+    equal the originals'."""
+    import data_compression_tpu.models.nybble as jnyb
+    import data_compression_tpu.models.small as jsmall
+    import data_compression_tpu_torch.models.nybble as pnyb
+    import data_compression_tpu_torch.models.small as psmall
+
+    for name in ("NYBBLES_TYPE", "SEED_ROW", "NUM_CONTEXTS", "LETTERS_PER_CONTEXT"):
+        assert getattr(pnyb, name) == getattr(jnyb, name), name
+    assert pnyb._new_table() == jnyb._new_table()
+    for name in ("EIGHT_BIT_PRUNED", "ISPRINT_LITERAL", "NUM_CONTEXTS", "DICT_INDEXES",
+                 "MAX_WORD", "NP_SLOTS", "WORD_INDEXES"):
+        assert getattr(psmall, name) == getattr(jsmall, name), name
+    np.testing.assert_array_equal(psmall._NP_BYTES, jsmall._NP_BYTES)
+    np.testing.assert_array_equal(psmall._NP_SLOT, jsmall._NP_SLOT)
+    for n_slots in (jsmall.DICT_INDEXES, jsmall.NP_SLOTS):
+        pd, jd = psmall._ByteDict(n_slots), jsmall._ByteDict(n_slots)
+        for f in ("start", "length", "gen", "prefix", "prefix_gen", "letter", "nwi"):
+            np.testing.assert_array_equal(getattr(pd, f), getattr(jd, f))
+    pt_, jt = psmall._NybbleTable(), jsmall._NybbleTable()
+    for f in ("start", "length", "gen", "prefix", "prefix_gen", "letter", "nwi"):
+        np.testing.assert_array_equal(getattr(pt_, f), getattr(jt, f))
+    for x in range(256):
+        assert psmall._is_literal_index(x) == jsmall._is_literal_index(x)
+        assert psmall._ctx(x) == jsmall._ctx(x) and pnyb._ctx(x) == jnyb._ctx(x)
+
+
+def test_debug_utils_match():
+    """utils/debug.py: C literals and strings, the table dumps, the decode
+    trace and the stats counters equal the originals'."""
+    import data_compression_tpu.models.nybble as jnyb
+    import data_compression_tpu.models.small as jsmall
+    import data_compression_tpu.utils.debug as jdbg
+    import data_compression_tpu_torch.models.small as psmall
+    import data_compression_tpu_torch.utils.debug as pdbg
+
+    rng = np.random.default_rng(17)
+    blob = bytes(rng.integers(0, 256, 600, dtype=np.uint8)) + b'a"\\\n\tf0' * 30
+    for width in (70, 12):
+        assert pdbg.c_literal(blob, width) == jdbg.c_literal(blob, width)
+    assert pdbg.c_string(blob, "x") == jdbg.c_string(blob, "x")
+    text = enwik_like(3000, 18)
+    table = jnyb._new_table()
+    for i in range(1, len(text)):
+        jnyb._mtf_update(table, jnyb._ctx(text[i - 1]), text[i])
+    assert pdbg.dump_nybble_table(table) == jdbg.dump_nybble_table(table)
+    payload = jnyb.encode_host(text)
+    assert list(pdbg.trace_nybble_decode(payload, len(text))) == list(
+        jdbg.trace_nybble_decode(payload, len(text)))
+    d = psmall._ByteDict()
+    for i in range(1, 200):
+        d.add(i % 32, 0x41, i - 1, i % 7, text[i])
+    assert pdbg.dump_small_dictionary(d, text) == jdbg.dump_small_dictionary(d, text)
+    assert pdbg.dump_small_dictionary(d, text, 5) == jdbg.dump_small_dictionary(d, text, 5)
+    assert pdbg.dump_small_dictionary(psmall._ByteDict(), b"") == jdbg.dump_small_dictionary(
+        jsmall._ByteDict(), b"")
+    ps, js = pdbg.CodecStats(32), jdbg.CodecStats(32)
+    assert ps.summary() == js.summary()
+    for s in (ps, js):
+        for k in range(100):
+            s.hit(k % 32) if k % 3 else s.literal()
+    assert (ps.summary(), ps.times_used_directly, ps.hits, ps.literals) == (
+        js.summary(), js.times_used_directly, js.hits, js.literals)
 
 
 @pytest.mark.parametrize(

@@ -6,6 +6,7 @@ the other's frames, and corrupt frames must raise ValueError.
 Tolerance: exact — frames and decoded outputs are compared as bytes.
 """
 
+import dataclasses
 import io
 
 import numpy as np
@@ -128,13 +129,22 @@ def test_truncated_and_oversized_chunks_raise_value_error():
 
 
 def test_not_ported_paths_raise_not_implemented():
+    """Only the printable container is left unported; every codec of
+    CODEC_IDS decodes (the JAX package's nybble frame, also at a block
+    size above 4096 that 4096 does not divide), and an unknown codec name
+    raises ValueError."""
+    text = b"hello hello hello " * 500
+    for block_size in (65536, 6144):
+        nyb = jx.compress(text, jx.CodecConfig(codec="nybble", block_size=block_size,
+                                               use_device=False))
+        assert pt.decompress(nyb, device="cpu") == text
+    printable = jx.compress(text, jx.CodecConfig(use_device=False), printable=True)
     with pytest.raises(NotImplementedError):
-        pt.compress(b"abc", pt.CodecConfig(codec="nybble", chunk_syms=4096), device="cpu")
-    nyb = jx.compress(b"hello hello hello", jx.CodecConfig(codec="nybble", use_device=False))
-    with pytest.raises(NotImplementedError):
-        pt.decompress(nyb, device="cpu")
+        pt.decompress(printable, device="cpu")
     with pytest.raises(ValueError):
         pt.CodecConfig(codec="bogus")
+    with pytest.raises(ValueError, match="unknown codec"):
+        pt.get_codec(dataclasses.replace(pt.CodecConfig(), codec="bogus"), "cpu")
 
 
 def test_cli_whole_files(tmp_path, capsys):

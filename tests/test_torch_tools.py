@@ -357,7 +357,7 @@ def _run(args):
 
 @pytest.mark.parametrize("n", ARITIES)
 def test_ablate_smoke_json(n):
-    r = _run(["data_compression_tpu_torch.tools.ablate", str(n), "--smoke"])
+    r = _run(["data_compression_tpu_torch.tools.ablate", str(n), "--smoke", "--device", "cpu"])
     assert r.returncode == 0, r.stderr[-2000:]
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out == {"smoke": True, "roundtrip_ok": True, "blocks": 2}
@@ -399,3 +399,83 @@ def test_timing_needs_a_card(monkeypatch):
         ablate.main(["2", "1"])
     with pytest.raises(RuntimeError):
         microbench.main(["--device", "cpu"])
+
+
+def test_smoke_runs_default_to_the_card(monkeypatch):
+    """Both tools' ``--smoke`` and ``smoke()`` run on cuda unless told
+    otherwise: with no card they raise, never fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: ablate.main(["2", "--smoke"]), lambda: ablate.smoke(2),
+                 lambda: microbench.main(["--smoke"]), lambda: microbench.smoke()):
+        with pytest.raises(RuntimeError):
+            call()
+
+
+class _Event:
+    def __init__(self, device_type, us):
+        self.device_type, self.device_time_total = device_type, us
+
+
+def _fake_profiler(monkeypatch, sessions):
+    """torch.profiler.profile replaced by sessions that hold the given
+    device record counts (10 µs each, beside one host record); -> the
+    list of counts the fake handed out."""
+    from torch.autograd import DeviceType
+
+    handed = []
+
+    class Profile:
+        def __init__(self, activities):
+            self.n = next(sessions)
+            handed.append(self.n)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [_Event(DeviceType.CPU, 99.0)] + [_Event(DeviceType.CUDA, 10.0)] * self.n
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(timing, "WINDOW_PAD_S", 0.0)
+    return handed
+
+
+def test_device_ms_takes_only_whole_sessions(monkeypatch):
+    """One counting session (run again while empty) fixes the device
+    records per call; a timed session that holds fewer than iters times
+    that many is run again."""
+    iters = 5
+    handed = _fake_profiler(monkeypatch, iter([0, 2, 2 * iters - 1, 2 * iters, 99]))
+    monkeypatch.setattr(timing, "WINDOW_PAD_S", 0.25)
+    monkeypatch.setattr(timing, "MAX_WINDOW_PAD_S", 1.0)
+    pads = []
+    monkeypatch.setattr(timing.time, "sleep", pads.append)
+    calls = []
+    ms = timing.device_ms(lambda: calls.append(1), iters=iters)
+    assert ms == pytest.approx(2 * iters * 10.0 / iters * 1e-3)
+    assert handed == [0, 2, 2 * iters - 1, 2 * iters]
+    assert len(calls) == 1 + 1 + 1 + 2 * iters  # warm-up, two counting, two timed sessions
+    # each session idles at both ends; the pad doubles after a session
+    # that is not whole, up to its cap
+    assert pads == [0.25, 0.25, 0.5, 0.5, 0.5, 0.5, 1.0, 1.0]
+
+
+def test_device_ms_raises_when_no_session_is_whole(monkeypatch):
+    iters = 4
+    _fake_profiler(monkeypatch, iter([3] + [3 * iters - 2] * timing.PROFILE_SESSIONS))
+    short = ", ".join(["10"] * timing.PROFILE_SESSIONS)
+    with pytest.raises(RuntimeError, match=rf"held \[3\] .*12 were expected.*\[{short}\]"):
+        timing.device_ms(lambda: None, iters=iters)
+    _fake_profiler(monkeypatch, iter([0] * timing.PROFILE_SESSIONS))
+    with pytest.raises(timing.IncompleteProfile, match="no whole session"):
+        timing.device_ms(lambda: None, iters=iters)
+    # readings that check nothing take None (not measured) with a warning
+    _fake_profiler(monkeypatch, iter([0] * timing.PROFILE_SESSIONS + [1, iters]))
+    with pytest.warns(RuntimeWarning, match="device time not measured"):
+        assert timing.device_ms_or_none(lambda: None, iters=iters) is None
+    assert timing.device_ms_or_none(lambda: None, iters=iters) == pytest.approx(10.0 * 1e-3)
