@@ -60,14 +60,33 @@ script exits non-zero without a result line):
      ``decompress`` of the 64 MiB input must round-trip exactly; their
      ratio, compress / decompress GB/s and route (the native runtime's
      OpenMP batch drivers on the host, or the pass-through) are printed;
-     a frame with one payload byte flipped must raise ValueError.
+     a frame with one payload byte flipped must raise ValueError;
+  9. streamed files: a 1 GiB file (16 copies of the 64 MiB input, each
+     rotated by a seeded offset) through ``python -m
+     data_compression_tpu_torch compress`` / ``decompress`` on cuda in
+     child processes: the output must be exact, with 64 frames; frames 0
+     and 63 must equal ``compress`` of their 16 MiB slices; each child's
+     kernel launch counts must be > 0; compress / decompress GB/s, peak
+     host RSS against a one-batch (16 MiB) file, whose growth must stay
+     under 128 MiB (8 batches), and ``torch.cuda.max_memory_allocated``
+     are printed; a printable round trip of one 16 MiB batch must be
+     exact;
+ 10. the device-resident pipeline at n = 2, 16 and 3 on the 64 MiB
+     input: the table-build kernel's code lengths must equal its plain
+     version's and the native builder's; ``compress_blocks_device`` runs
+     under ``torch.cuda.set_sync_debug_mode("error")`` (no host read)
+     and its frame must equal phase 4's; ``decode_blocks_device`` must
+     give back the input; device GB/s of each direction (best of 3
+     chains, CUDA events) are printed beside the time of each stage.
 
 The line before the last is a JSON object of the kernels, one entry
 per kernel and arity (name, arity, route, source, the TPU kernel it
-replaces, launches in that arity's runs of phases 4 and 5, or for the
-tools' kernels in phase 7, each counted from 0, max abs error against
+replaces, launches in that arity's runs of phases 4, 5 and 10, or for
+the tools' kernels in phase 7, each counted from 0, max abs error against
 the plain version, ms per call, plain ms per call, the bound: the
-bytes the call must move at 3.35 TB/s, and library ms, the time of one
+bytes the call must move at 3.35 TB/s (the table build's: its
+histograms in and its code lengths out; its "replaces" names the JAX
+function, which reaches no Pallas kernel), and library ms, the time of one
 PyTorch call computing the same function, or null; the compaction
 entries have ``device_ms``, the copy kernel's ``device_ms`` and
 ``library_device_ms``: device time per call by torch.profiler,
@@ -91,8 +110,12 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
+import shutil
 import socket
+import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -125,6 +148,47 @@ KERNELS = [
 # pipeline; the profiling tools' own kernels are in tool_kernels()
 SLICE_KERNELS = ("huffman_encode", "compact", "huffman_decode")
 SHARDED_KERNELS = ("huffman_encode_rows", "huffman_decode")
+DEVICE_KERNELS = ("table_build", "huffman_encode", "compact", "huffman_decode")
+TABLE_BUILD = ("table_build", "data_compression_tpu_torch/csrc/table_build.cu",
+               "data_compression_tpu/ops/table_build.py:230")
+STREAM_COPIES = 16  # phase 9: copies of the 64 MiB input in the streamed file
+RSS_GROWTH_LIMIT = 128 * MIB  # phase 9: 8 batches of 16 MiB
+# phase 9's child: the CLI as ``python -m`` runs it, then on stderr its
+# peak RSS (resident pages of /proc/self/statm, or VmRSS, sampled every
+# millisecond by a thread: ru_maxrss would carry the parent's peak across
+# fork and exec, and not every /proc has VmHWM; null if no sample was
+# taken), device memory and kernel launches
+CLI_CHILD = r"""
+import json, os, runpy, sys, threading, time
+peak = [None]
+def rss():
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except OSError:
+        with open("/proc/self/status") as f:
+            return 1024 * int(next(ln.split()[1] for ln in f if ln.startswith("VmRSS:")))
+def sample():
+    while True:
+        peak[0] = max(peak[0] or 0, rss())
+        time.sleep(0.001)
+threading.Thread(target=sample, daemon=True).start()
+sys.argv = ["data_compression_tpu_torch"] + sys.argv[1:]
+try:
+    runpy.run_module("data_compression_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    if e.code:
+        raise
+import torch
+from data_compression_tpu_torch.ops.kernels import compact, decode, encode, table_build
+print("CHILD " + json.dumps({
+    "peak_rss": peak[0],
+    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    "launches": {"huffman_encode": encode.encode_blocks.launches,
+                 "compact": compact.compact_blocks.launches,
+                 "huffman_decode": decode.decode_chunks.launches,
+                 "table_build": table_build.huffman_lengths.launches}}), file=sys.stderr)
+"""
 # Huffman arities with kernels, and the symbols of a complete tree at the
 # length cap for each of n = 3 and 16 (1 + a multiple of n - 1)
 ARITIES = (2, 16, 3)
@@ -580,6 +644,197 @@ def sharded_phase(data: bytes, blobs: dict, card: str, count_launches) -> dict:
         dist.destroy_process_group()
 
 
+def run_cli(args, label: str) -> dict:
+    """One CLI command in a child process on cuda; -> its report (peak
+    RSS, device memory, launches) with the wall seconds and the seconds
+    the CLI printed for its own work."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", CLI_CHILD, *args], cwd=ROOT, capture_output=True,
+                       text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"{label}: exit {r.returncode}\n{r.stderr[-3000:]}")
+    report = json.loads(r.stderr.split("CHILD ", 1)[1])
+    if report["peak_rss"] is None:
+        raise AssertionError(f"{label}: the child took no sample of its RSS")
+    m = re.search(r"\(ratio [0-9.]+, ([0-9.]+)s on|\(([0-9.]+)s on", r.stderr)
+    if m is None:
+        raise AssertionError(f"{label}: no time in the CLI's report\n{r.stderr[-2000:]}")
+    report.update(wall_s=wall, cli_s=float(m.group(1) or m.group(2)))
+    return report
+
+
+def same_files(a: Path, b: Path) -> bool:
+    with open(a, "rb") as f, open(b, "rb") as g:
+        while True:
+            x, y = f.read(64 * MIB), g.read(64 * MIB)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def stream_phase(data: bytes, card: str) -> None:
+    """The streamed CLI on a 1 GiB file against its one-batch baseline."""
+    import numpy as np
+
+    from data_compression_tpu_torch import CodecConfig, api, compress, decompress, framing
+
+    cfg = CodecConfig()
+    batch = api.DEFAULT_BATCH_BLOCKS * cfg.block_size
+    offsets = np.random.default_rng(SEED).integers(0, len(data), STREAM_COPIES)
+    build = ROOT / "data_compression_tpu_torch" / "build"
+    build.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="stream-", dir=build))
+    try:
+        src, one = work / "in", work / "one"
+        with open(src, "wb") as f:
+            for off in offsets.tolist():
+                f.write(data[off:])
+                f.write(data[:off])
+        one.write_bytes(data[:batch])
+        size = src.stat().st_size
+        reports = {}
+        for name, path in (("one batch", one), ("1 GiB", src)):
+            out, back = work / (path.name + ".dctz"), work / (path.name + ".back")
+            c = run_cli(["compress", str(path), str(out)], f"compress {name}")
+            d = run_cli(["decompress", str(out), str(back)], f"decompress {name}")
+            if not same_files(path, back):
+                raise AssertionError(f"streamed round trip ({name}) is not exact")
+            for label, rep in (("compress", c), ("decompress", d)):
+                kernels = SLICE_KERNELS[:2] if label == "compress" else SLICE_KERNELS[2:]
+                if not all(rep["launches"][k] > 0 for k in kernels):
+                    raise AssertionError(f"{label} {name}: a kernel never launched: "
+                                         f"{rep['launches']}")
+            reports[name] = (c, d, out)
+        frames, first, last = 0, None, None
+        with open(reports["1 GiB"][2], "rb") as f:
+            while (frame := framing.read_frame(f)) is not None:
+                first = frame if frames == 0 else first
+                last, frames = frame, frames + 1
+        want = -(-size // batch)
+        if frames != want:
+            raise AssertionError(f"streamed file has {frames} frames, not {want}")
+        with open(src, "rb") as f:
+            head = f.read(batch)
+            f.seek((want - 1) * batch)
+            tail = f.read()
+        if first != compress(head, cfg, device="cuda") or last != compress(tail, cfg, device="cuda"):
+            raise AssertionError("streamed first or last frame differs from compress of its slice")
+        for name, (c, d, out) in reports.items():
+            n = (size if name == "1 GiB" else batch)
+            log(f"stream {name} ({n} bytes -> {out.stat().st_size}): compress "
+                f"{n / c['cli_s'] / 1e9:.4f} GB/s in the CLI, {n / c['wall_s'] / 1e9:.4f} GB/s "
+                f"with the child's start; decompress {n / d['cli_s'] / 1e9:.4f} / "
+                f"{n / d['wall_s'] / 1e9:.4f} GB/s; peak host RSS compress "
+                f"{c['peak_rss'] / MIB:.1f} MiB, decompress {d['peak_rss'] / MIB:.1f} MiB; "
+                f"max_memory_allocated compress {c['max_memory_allocated'] / MIB:.1f} MiB, "
+                f"decompress {d['max_memory_allocated'] / MIB:.1f} MiB; launches "
+                f"{c['launches']} / {d['launches']}; card {card}")
+        for i, label in enumerate(("compress", "decompress")):
+            growth = reports["1 GiB"][i]["peak_rss"] - reports["one batch"][i]["peak_rss"]
+            log(f"stream {label}: peak RSS growth from one batch to 1 GiB {growth / MIB:.1f} MiB "
+                f"(limit {RSS_GROWTH_LIMIT // MIB} MiB)")
+            if growth > RSS_GROWTH_LIMIT:
+                raise AssertionError(f"streamed {label} RSS grew {growth / MIB:.1f} MiB")
+        log(f"stream: {frames} frames; frames 0 and {frames - 1} == compress of their slices")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    text = compress(data[:batch], cfg, device="cuda", printable=True)
+    t1 = time.perf_counter()
+    if not text.startswith(framing.PRINTABLE_MAGIC) or decompress(text, device="cuda") != data[:batch]:
+        raise AssertionError("printable round trip of one batch is not exact")
+    log(f"stream printable: one batch ({batch} bytes -> {len(text)} printable) round trip exact; "
+        f"compress {(t1 - t0) * 1e3:.1f} ms, decompress {(time.perf_counter() - t1) * 1e3:.1f} ms "
+        "(host wall)")
+
+
+def device_phase(data: bytes, blobs: dict, dev, card: str, count_launches) -> tuple:
+    """The device-resident pipeline at each arity; -> ({arity: launches of
+    its kernels}, {arity: the table-build kernel's kernels-line entry})."""
+    import numpy as np
+    import torch
+
+    from data_compression_tpu_torch import CodecConfig, device_api, framing
+    from data_compression_tpu_torch.huffman import batched as hb
+    from data_compression_tpu_torch.ops import table_build as tbd
+    from data_compression_tpu_torch.ops.histogram import block_histograms
+    from data_compression_tpu_torch.ops.kernels import decode as kdecode
+    from data_compression_tpu_torch.ops.kernels import encode as kencode
+    from data_compression_tpu_torch.ops.kernels import table_build as ktb
+
+    blocks, lengths = framing.split_blocks(data, CodecConfig().block_size)
+    dev_blocks = torch.from_numpy(blocks).to(dev)
+    dev_lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+    valid = torch.arange(blocks.shape[1], device=dev)[None, :] < dev_lens[:, None]
+    hists = block_histograms(dev_blocks, dev_lens)
+    host_hists = hists.cpu().numpy()
+    launches, entries = {}, {}
+    for n in ARITIES:
+        cfg = CodecConfig(arity=n)
+        C = cfg.chunk_syms
+        lengths_k = ktb.huffman_lengths(hists, n)
+        lengths_r = ktb.huffman_lengths_ref(hists, n)
+        if not np.array_equal(lengths_k.cpu().numpy(), hb.capped_lengths_batch(host_hists, n)):
+            raise AssertionError(f"table build n={n}: lengths differ from the native builder's")
+        entries[n] = dict(
+            max_abs_err=max_abs_err(lengths_k, lengths_r, torch.ones_like(lengths_k, dtype=torch.bool)),
+            ms=chain_ms(lambda: ktb.huffman_lengths(hists, n)),
+            plain_ms=chain_ms(lambda: ktb.huffman_lengths_ref(hists, n), 1),
+            bound_ms=bound_ms(nbytes_of(hists, lengths_k)), bound_by="bytes", library_ms=None,
+        )
+
+        def run():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                dc = device_api.compress_blocks_device(dev_blocks, dev_lens, cfg, device=dev)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            return dc, device_api.decode_blocks_device(*device_api.chunk_inputs(dc),
+                                                       dc.table_rows, n, C, device=dev)
+
+        (dc, out), launches[n] = count_launches(DEVICE_KERNELS, run)
+        if device_api.to_frame(dc, blocks, cfg) != blobs[n]:
+            raise AssertionError(f"device pipeline n={n}: frame differs from compress's")
+        if not torch.equal(out.view(dev_blocks.shape)[valid], dev_blocks[valid]):
+            raise AssertionError(f"device pipeline n={n}: decode did not give back the input")
+        inputs = device_api.chunk_inputs(dc)
+        lim, bmf, syms = tbd.decode_tables_device(dc.table_rows, n)
+        dense, _ = tbd.encode_tables_device(lengths_k, n)
+        rows, digits, bb = kencode.encode_blocks(dev_blocks, dev_lens, dense, C, n)
+        total = int(bb.long().sum())
+        stage = {
+            "histogram (index_add_)": chain_ms(lambda: block_histograms(dev_blocks, dev_lens)),
+            "table build kernel": entries[n]["ms"],
+            "encode tables (torch ops)": chain_ms(lambda: tbd.encode_tables_device(lengths_k, n)),
+            "encode kernel": chain_ms(lambda: kencode.encode_blocks(dev_blocks, dev_lens, dense,
+                                                                    C, n)),
+            "compaction kernel, out_cap B*S": chain_ms(
+                lambda: device_api._compact_into(rows, bb, dev_blocks.numel())),
+            "decode tables (torch ops)": chain_ms(lambda: tbd.decode_tables_device(dc.table_rows,
+                                                                                   n)),
+            "decode kernel": chain_ms(kdecode.decode_launcher(*inputs, lim, bmf, syms, C, n)),
+        }
+        del rows, digits, bb
+        comp = chain_ms(lambda: device_api.compress_blocks_device(dev_blocks, dev_lens, cfg,
+                                                                  device=dev))
+        dec = chain_ms(lambda: device_api.decode_blocks_device(*inputs, dc.table_rows, n, C,
+                                                               device=dev))
+        log(f"device pipeline n={n}: no host read in compress (sync debug mode error), frame == "
+            f"compress's, decode exact; launches {launches[n]}; payload {total} bytes; compress "
+            f"{comp:.4f} ms = {len(data) / comp / 1e6:.2f} GB/s, decompress {dec:.4f} ms = "
+            f"{len(data) / dec / 1e6:.2f} GB/s (device, best of 3 chains, CUDA events; the "
+            "decompress includes its input check's host read); stages ms: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in stage.items()) + f"; card {card}")
+        e = entries[n]
+        log(f"kernel table_build n={n}: max_abs_err {e['max_abs_err']} kernel {e['ms']:.4f} ms "
+            f"plain {e['plain_ms']:.4f} ms bound {e['bound_ms']:.4f} ms")
+        del dc, out, inputs
+        torch.cuda.empty_cache()
+    return launches, entries
+
+
 def main() -> int:
     try:
         import torch
@@ -639,6 +894,8 @@ def main() -> int:
     host = f"{cpu_model()}, os.cpu_count() {os.cpu_count()}"
     table_phase(data, dev, host)
     wrappers = {name: getattr(mods[m], w) for name, m, w, *_ in KERNELS}
+    wrappers["table_build"] = importlib.import_module(
+        "data_compression_tpu_torch.ops.kernels.table_build").huffman_lengths
     wrappers["copy"] = mods["copy"].copy_blocks
     wrappers.update({f"lookup_{v}": fn for v, fn in mods["microbench"].WRAPPERS.items()})
 
@@ -720,13 +977,25 @@ def main() -> int:
     # -- 8. the serial codecs, made for cuda (they run on the host)
     serial_phase(data, card, host)
 
+    # -- 9. streamed files through the CLI on cuda
+    stream_phase(data, card)
+
+    # -- 10. the device-resident pipeline
+    device_launches, table_results = device_phase(data, blobs, dev, card, count_launches)
+
     log(f"card: {card}")
     print(json.dumps({"kernels": [
         dict(name=name, arity=n, route="cuda", source=src, replaces=rep,
-             launches=slice_launches[n].get(name, 0) + sharded_launches[n].get(name, 0),
+             launches=(slice_launches[n].get(name, 0) + sharded_launches[n].get(name, 0)
+                       + device_launches[n].get(name, 0)),
              **results[n][name])
         for n in ARITIES
         for name, _, _, _, src, rep in KERNELS
+    ] + [
+        dict(name=TABLE_BUILD[0], arity=n, route="cuda", source=TABLE_BUILD[1],
+             replaces=TABLE_BUILD[2], launches=device_launches[n]["table_build"],
+             **table_results[n])
+        for n in ARITIES
     ] + [
         dict(name=name, arity=None, route="cuda", source=src, replaces=rep,
              launches=tool_launches[name], **tool_results[name])

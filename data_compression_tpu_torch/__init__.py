@@ -6,7 +6,9 @@ reference) to PyTorch with hand-written CUDA kernels for Hopper
 This package imports torch and never jax.
 
 Ported so far: all five codecs through ``compress`` / ``decompress`` /
-``roundtrip`` and the CLI (``python -m data_compression_tpu_torch``),
+``roundtrip``, the streaming and file drivers, the printable container
+and the CLI (``python -m data_compression_tpu_torch``), the
+device-resident pipeline (``device_api``),
 the sharded pipeline on ``torch.distributed`` (``parallel``, Huffman
 only as in the reference), the native C runtime (``native``) and the
 profiling tools (``tools``).  Every entry point takes ``device``
@@ -21,7 +23,13 @@ package's production route, whatever the device; made for ``cuda``
 they raise where no CUDA device is present.
 """
 
-from data_compression_tpu_torch.api import compress, decompress, roundtrip
+from data_compression_tpu_torch.api import (
+    compress,
+    compress_file,
+    decompress,
+    decompress_file,
+    roundtrip,
+)
 from data_compression_tpu_torch.config import CODEC_IDS, CodecConfig
 from data_compression_tpu_torch.registry import (
     available_codecs,
@@ -34,6 +42,8 @@ __version__ = "0.1.0"
 __all__ = [
     "compress",
     "decompress",
+    "compress_file",
+    "decompress_file",
     "roundtrip",
     "CodecConfig",
     "CODEC_IDS",

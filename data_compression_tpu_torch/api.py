@@ -5,11 +5,14 @@ Split into blocks -> encode the blocks on ``device`` -> universal
 LITERAL fallback -> frame; and the inverse with per-block CRC checks.
 Every entry point takes the device explicitly; nothing picks one.  The
 serial codecs run on the host whatever the device (``models/base.py``
-``HostCodec``).  Streaming and file drivers are not ported yet.
+``HostCodec``).  The streaming and file drivers hold at most one batch
+of blocks resident and write one independent frame per batch, as the
+JAX package's do (its CLI's ``compress`` always streams).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import numpy as np
@@ -37,11 +40,16 @@ def compress(
     meta: Optional[bytes] = None,
     device="cuda",
     stats=None,
+    printable: bool = False,
 ) -> bytes:
     """Compress a byte stream into a framed container on ``device``.
 
     ``meta`` attaches an annotation block that decoders skip (raw_len 0,
     CRC of the annotation bytes themselves).
+
+    ``printable=True`` armors the frame as the in-band printable
+    container (``framing.frame_to_printable``): every block payload an
+    independent Z85 span, the whole stream printable text.
 
     ``stats``: optional ``utils.debug.CodecStats`` collecting per-context
     prediction/dictionary hit counters during encode (the reference's
@@ -61,7 +69,8 @@ def compress(
         result = codec.encode_blocks(blocks, lengths, stats=stats)
     else:
         result = codec.encode_blocks(blocks, lengths)
-    return pack_blocks(config, len(raw), blocks, lengths, result, meta)
+    frame = pack_blocks(config, len(raw), blocks, lengths, result, meta)
+    return framing.frame_to_printable(frame) if printable else frame
 
 
 def pack_blocks(config: CodecConfig, total_len: int, blocks: np.ndarray,
@@ -107,12 +116,15 @@ def pack_blocks(config: CodecConfig, total_len: int, blocks: np.ndarray,
 
 
 def decompress(data: BytesLike, device="cuda") -> bytes:
-    """Decompress one binary framed container on ``device``.  The format
-    parameters come from the frame.  A serial-codec frame stores no chunk
-    size and its codec reads none, so its config takes ``chunk_syms =
-    block_size``: the original's 4096 fails validation for every block
-    size above 4096 that 4096 does not divide."""
+    """Decompress one framed container, binary or printable (detected by
+    its magic), on ``device``.  The format parameters come from the
+    frame.  A serial-codec frame stores no chunk size and its codec reads
+    none, so its config takes ``chunk_syms = block_size``: the original's
+    4096 fails validation for every block size above 4096 that 4096 does
+    not divide."""
     raw = _as_bytes(data)
+    if raw.startswith(framing.PRINTABLE_MAGIC):
+        raw = framing.printable_to_frame(raw)
     frame = framing.unpack_frame(raw)
     if frame.codec_name == "huffman":
         chunk_syms = frame.chunk_syms or min(4096, frame.block_size)
@@ -165,3 +177,111 @@ def roundtrip(data: BytesLike, config: Optional[CodecConfig] = None,
               device="cuda") -> bool:
     """compress -> decompress -> compare."""
     return decompress(compress(data, config, device=device), device=device) == _as_bytes(data)
+
+
+# ----------------------------------------------------------------------
+# Streaming and file drivers: bounded memory over unbounded inputs
+# ----------------------------------------------------------------------
+
+DEFAULT_BATCH_BLOCKS = 256  # 16 MiB resident per batch at 64 KiB blocks
+
+
+def compress_stream(
+    fin,
+    fout,
+    config: Optional[CodecConfig] = None,
+    batch_blocks: int = DEFAULT_BATCH_BLOCKS,
+    printable: bool = False,
+    stats=None,
+    device="cuda",
+) -> dict:
+    """Compress a binary stream into a concatenation of independent
+    frames, one per ``batch_blocks * block_size`` bytes read, holding at
+    most one batch of input resident; an empty input gives one empty
+    frame.  ``printable=True`` armors each frame on its own, so an
+    unbounded input streams to printable text."""
+    config = config or CodecConfig()
+    batch_bytes = batch_blocks * config.block_size
+    total_in = 0
+    total_out = 0
+    frames = 0
+    while True:
+        chunk = fin.read(batch_bytes)
+        if not chunk:
+            break
+        out = compress(chunk, config, device=device, stats=stats, printable=printable)
+        fout.write(out)
+        total_in += len(chunk)
+        total_out += len(out)
+        frames += 1
+    if frames == 0:  # empty input still yields one valid (empty) frame
+        out = compress(b"", config, device=device, stats=stats, printable=printable)
+        fout.write(out)
+        total_out += len(out)
+        frames = 1
+    return {
+        "raw_bytes": total_in,
+        "compressed_bytes": total_out,
+        "frames": frames,
+        "ratio": total_out / max(1, total_in),
+    }
+
+
+def decompress_stream(fin, fout, device="cuda") -> dict:
+    """Inverse of compress_stream: frames (binary or printable, mixed)
+    are read and decoded one at a time, so at most one frame is
+    resident.  A stream with no frame raises ValueError."""
+    total_in = 0
+    total_out = 0
+    frames = 0
+    while True:
+        frame_bytes = framing.read_frame(fin)
+        if frame_bytes is None:
+            break
+        out = decompress(frame_bytes, device=device)
+        fout.write(out)
+        total_in += len(frame_bytes)
+        total_out += len(out)
+        frames += 1
+    if frames == 0:
+        raise ValueError("empty input: no frames")
+    return {
+        "compressed_bytes": total_in,
+        "raw_bytes": total_out,
+        "frames": frames,
+    }
+
+
+def compress_file(
+    src: str,
+    dst: str,
+    config: Optional[CodecConfig] = None,
+    streaming: Optional[bool] = None,
+    batch_blocks: int = DEFAULT_BATCH_BLOCKS,
+    device="cuda",
+) -> dict:
+    """File driver.  ``streaming=None`` streams files larger than one
+    batch; a smaller file gives the single frame of ``compress``."""
+    config = config or CodecConfig()
+    if streaming is None:
+        streaming = os.path.getsize(src) > batch_blocks * config.block_size
+    with open(src, "rb") as f:
+        if streaming:
+            with open(dst, "wb") as g:
+                return compress_stream(f, g, config, batch_blocks, device=device)
+        data = f.read()
+    out = compress(data, config, device=device)
+    with open(dst, "wb") as f:
+        f.write(out)
+    return {
+        "raw_bytes": len(data),
+        "compressed_bytes": len(out),
+        "ratio": len(out) / max(1, len(data)),
+    }
+
+
+def decompress_file(src: str, dst: str, device="cuda") -> dict:
+    """File driver; always frame by frame (a single-frame container is
+    the one-iteration case)."""
+    with open(src, "rb") as f, open(dst, "wb") as g:
+        return decompress_stream(f, g, device)

@@ -18,9 +18,15 @@ Layout (all little-endian):
   +--------------------------------------------------------------+
 
 Block flag bit0 = LITERAL pass-through (payload is the raw bytes), bit1 =
-META annotation block.  CRC32 is of the uncompressed block.  The
-printable (Z85) container is not ported yet: reading one raises
-NotImplementedError.
+META annotation block.  CRC32 is of the uncompressed block.
+
+The in-band printable container (``PRINTABLE_MAGIC``) armors the header,
+the metadata region and every block payload as independent Z85 spans
+whose lengths follow from the (armored) block table, so the stream is
+printable text and every block stays locatable.  ``read_frame`` detects
+it per frame and returns the binary equivalent; the port's two checks
+of ``unpack_frame`` / ``read_frame`` (an unknown codec id and a cut
+block table raise ValueError) hold on the printable path too.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from data_compression_tpu_torch.config import CODEC_NAMES
+from data_compression_tpu_torch.utils.base64url import z85_core, z85_core_decode, z85_core_len
 from data_compression_tpu_torch.utils.crc import crc32
 
 MAGIC = b"DCTZ"
@@ -92,10 +99,6 @@ def _check_codec(codec_id: int) -> None:
         raise ValueError(f"unknown codec id {codec_id}")
 
 
-def _printable_not_ported():
-    raise NotImplementedError("printable (Z85) containers are not yet ported")
-
-
 def pack_frame(
     codec_id: int,
     arity: int,
@@ -129,9 +132,8 @@ def pack_frame(
 
 
 def unpack_frame(data: bytes) -> Frame:
-    """Parse a framed stream; every structural fault raises ValueError."""
-    if data.startswith(PRINTABLE_MAGIC):
-        _printable_not_ported()
+    """Parse a binary framed stream; every structural fault raises
+    ValueError (a printable container: bad magic)."""
     if len(data) < _HEADER.size:
         raise ValueError("truncated frame: header")
     (magic, ver, flags, codec_id, arity, bsize, nblocks, total, chunk_log2, hcrc) = (
@@ -182,16 +184,136 @@ def unpack_frame(data: bytes) -> Frame:
     )
 
 
+def frame_to_printable(frame: bytes) -> bytes:
+    """Binary frame -> all-isprint container (Z85 spans + newlines)."""
+    f = unpack_frame(frame)  # validates header CRC + structure
+    head = frame[: _HEADER.size]
+    off = _HEADER.size
+    meta_len = 0
+    if f.flags & FLAG_SHARED_TABLE:
+        meta_len += 4 + len(f.shared_table)
+    meta_len += len(f.entries) * _ENTRY.size
+    meta = frame[off : off + meta_len]
+    parts = [
+        PRINTABLE_MAGIC.decode(),
+        z85_core(head),
+        "\n",
+        z85_core(meta),
+        "\n",
+    ]
+    parts.extend(z85_core(p) for p in f.payloads)
+    parts.append("\n")
+    return "".join(parts).encode("ascii")
+
+
+def _printable_header(head: bytes) -> Tuple[int, int]:
+    """Check a printable container's decoded header; -> (flags, nblocks)."""
+    (magic, ver, flags, codec_id, _a, _b, nblocks, _t, _cl, hcrc) = _HEADER.unpack(head)
+    if magic != MAGIC or ver != VERSION:
+        raise ValueError("bad printable header")
+    if crc32(head[:-4]) != hcrc:
+        raise ValueError("header CRC mismatch")
+    _check_codec(codec_id)
+    return flags, nblocks
+
+
+def _comp_lens(meta: bytes, nblocks: int) -> List[int]:
+    """Payload byte counts of the block table at the end of ``meta``."""
+    base = len(meta) - nblocks * _ENTRY.size
+    return [_ENTRY.unpack_from(meta, base + k * _ENTRY.size)[0] for k in range(nblocks)]
+
+
+def printable_to_frame(data: bytes) -> bytes:
+    """Inverse of frame_to_printable -> the exact binary frame bytes."""
+    if not data.startswith(PRINTABLE_MAGIC):
+        raise ValueError("not a printable container")
+    text = data[len(PRINTABLE_MAGIC) :].decode("ascii", errors="strict")
+    hl = z85_core_len(_HEADER.size)
+    if len(text) < hl + 1 or text[hl] != "\n":
+        raise ValueError("truncated printable container (header)")
+    head = z85_core_decode(text[:hl], _HEADER.size)
+    flags, nblocks = _printable_header(head)
+    pos = hl + 1
+    meta_len = nblocks * _ENTRY.size
+    if flags & FLAG_SHARED_TABLE:
+        # the shared-table length rides first in the meta region: decode
+        # its armored group to learn tlen
+        first = z85_core_decode(text[pos : pos + z85_core_len(4)], 4)
+        (tlen,) = struct.unpack("<I", first)
+        meta_len += 4 + tlen
+    ml = z85_core_len(meta_len)
+    if len(text) < pos + ml + 1 or text[pos + ml] != "\n":
+        raise ValueError("truncated printable container (meta)")
+    meta = z85_core_decode(text[pos : pos + ml], meta_len)
+    pos += ml + 1
+    payloads = []
+    for cl in _comp_lens(meta, nblocks):
+        pl = z85_core_len(cl)
+        if len(text) < pos + pl:
+            raise ValueError("truncated printable container (payload)")
+        payloads.append(z85_core_decode(text[pos : pos + pl], cl))
+        pos += pl
+    return head + meta + b"".join(payloads)
+
+
+def _read_exact(stream, n: int, what: str) -> bytes:
+    buf = stream.read(n)
+    if len(buf) != n:
+        raise ValueError(f"truncated printable container ({what})")
+    return buf
+
+
+def read_printable_frame(stream, magic_consumed: bool = False) -> bytes:
+    """Read one in-band printable container from a stream and return the
+    equivalent BINARY frame bytes.  Every span length follows from data
+    already read, so streamed printable containers need no lookahead: a
+    printable stream is a concatenation of these, one per frame."""
+    if not magic_consumed:
+        if _read_exact(stream, len(PRINTABLE_MAGIC), "magic") != PRINTABLE_MAGIC:
+            raise ValueError("not a printable container")
+    hl = z85_core_len(_HEADER.size)
+    head_txt = _read_exact(stream, hl + 1, "header")
+    if head_txt[-1:] != b"\n":
+        raise ValueError("truncated printable container (header)")
+    head = z85_core_decode(head_txt[:-1].decode("ascii"), _HEADER.size)
+    flags, nblocks = _printable_header(head)
+    meta_len = nblocks * _ENTRY.size
+    lead = b""
+    if flags & FLAG_SHARED_TABLE:
+        lead = _read_exact(stream, z85_core_len(4), "shared table length")
+        (tlen,) = struct.unpack("<I", z85_core_decode(lead.decode("ascii"), 4))
+        meta_len += 4 + tlen
+    ml = z85_core_len(meta_len)
+    rest = _read_exact(stream, ml - len(lead) + 1, "meta")
+    if rest[-1:] != b"\n":
+        raise ValueError("truncated printable container (meta)")
+    meta = z85_core_decode((lead + rest[:-1]).decode("ascii"), meta_len)
+    payloads = []
+    for cl in _comp_lens(meta, nblocks):
+        span = _read_exact(stream, z85_core_len(cl), "payload")
+        payloads.append(z85_core_decode(span.decode("ascii"), cl))
+    if _read_exact(stream, 1, "terminator") != b"\n":
+        raise ValueError("truncated printable container (terminator)")
+    return head + meta + b"".join(payloads)
+
+
 def read_frame(stream) -> Optional[bytes]:
-    """Read exactly one complete binary frame from a file object, or None
-    at a clean EOF (streamed containers are concatenations of frames)."""
+    """Read exactly one complete frame from a binary file object, or None
+    at a clean EOF.  Streamed containers are concatenations of
+    independent frames, so an unbounded input is never resident.  A
+    printable container (PRINTABLE_MAGIC) is detected per frame and
+    returned as its binary equivalent, so binary and printable frames
+    may be mixed in one stream."""
     sniff = stream.read(4)
     if not sniff:
         return None
     if len(sniff) < 4:
         raise ValueError("truncated frame: header")
     if sniff == PRINTABLE_MAGIC[:4]:
-        _printable_not_ported()
+        tail = stream.read(len(PRINTABLE_MAGIC) - 4)
+        if sniff + tail != PRINTABLE_MAGIC:
+            raise ValueError(f"bad magic {(sniff + tail)!r}")
+        return read_printable_frame(stream, magic_consumed=True)
     header = sniff + stream.read(_HEADER.size - 4)
     if len(header) < _HEADER.size:
         raise ValueError("truncated frame: header")

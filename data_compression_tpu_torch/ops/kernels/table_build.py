@@ -1,0 +1,139 @@
+"""Capped canonical Huffman code lengths on the device (kernel:
+``csrc/table_build.cu``).
+
+Replaces ``data_compression_tpu/ops/table_build.py``
+``huffman_lengths_device``, which is no Pallas kernel but a ``lax.scan``
+over the merges, vectorised across blocks, inside a ``lax.while_loop``
+for the length cap.  In:
+
+  hists [B, 256] — per-block byte counts (any integer type; int64 is
+      read as it is, others are converted).
+
+Out: [B, 256] int32 code lengths in base-n digits under the cap
+``ARITY_MAX_LEN[n]``, bit-identical to the host builder
+(``huffman.batched.capped_lengths_batch``, the native
+``dct_huffman_capped_lengths_batch``) and to the JAX function: leaves
+keyed on (count, seniority) with the dummies of count 1 after the used
+symbols, the leaf popped on a tie, internal nodes first in, first out;
+while a tree is too deep its nonzero counts become ``(c + 1) // 2``.
+Any arity 2..64 builds; the device pipeline uses 2, 3 and 16.
+
+The plain version ``huffman_lengths_ref`` is a torch transcription of
+the JAX build, B blocks wide per merge step, in int64 (a block's
+counts may sum past 2**31 there too).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from data_compression_tpu_torch.config import ARITY_MAX_LEN
+from data_compression_tpu_torch.ops.kernels import _build
+
+S = 256  # alphabet
+MAXD = 64  # >= arity - 2 dummy leaves
+NL = S + MAXD  # leaf slots (sorted position); internal node t has id NL + t
+_INF = 1 << 62
+_SEN_BITS = 9  # seniority < NL < 2**9 in the leaf sort key
+
+
+def _check(hists, arity):
+    cap = ARITY_MAX_LEN[arity]  # KeyError outside 2..64, as the JAX function
+    if hists.dim() != 2 or hists.shape[1] != S or hists.is_floating_point():
+        raise ValueError(f"hists must be [B, {S}] integers, got {hists.dtype} "
+                         f"{tuple(hists.shape)}")
+    return hists.shape[0], cap
+
+
+def _build_once_ref(f, arity):
+    """Uncapped lengths [B, S] int64 of the counts ``f`` [B, S] int64."""
+    B, dev = f.shape[0], f.device
+    n1 = arity - 1
+    T = (NL - 1) // n1  # merges of the largest tree
+    used = f > 0
+    k = used.sum(1)
+    d = torch.where(k > 0, (n1 - (k - 1) % n1) % n1, 0)
+    # leaf keys count << 9 | seniority: reals in symbol order, then dummies
+    rank = torch.cumsum(used, 1) - 1
+    real_key = torch.where(used, (f << _SEN_BITS) + rank, _INF)
+    j = torch.arange(MAXD, device=dev)[None, :]
+    dummy_key = torch.where(j < d[:, None], (1 << _SEN_BITS) + k[:, None] + j, _INF)
+    keys = torch.sort(torch.cat([real_key, dummy_key], 1), 1).values  # [B, NL]
+    in_tree = torch.arange(NL, device=dev)[None, :] < (k + d)[:, None]
+    leaf_cnt = torch.where(in_tree, keys >> _SEN_BITS, _INF)
+    leaf_sen = torch.where(in_tree, keys & ((1 << _SEN_BITS) - 1), (1 << _SEN_BITS) - 1)
+
+    b = torch.arange(B, device=dev)
+    zeros = torch.zeros(B, dtype=torch.int64, device=dev)
+    lp, nh, nt = zeros.clone(), zeros.clone(), zeros.clone()
+    remaining = k + d
+    node_cnt = torch.full((B, T + 1), _INF, dtype=torch.int64, device=dev)  # + a dump slot
+    parent = torch.full((B, NL + T + 1), -1, dtype=torch.int64, device=dev)  # + a dump slot
+    for _ in range(T):
+        active = remaining > 1
+        total = zeros.clone()
+        for _ in range(arity):
+            lc = torch.where(lp < NL, leaf_cnt.gather(1, lp.clamp(max=NL - 1)[:, None])[:, 0],
+                             _INF)
+            nc = torch.where(nh < nt, node_cnt.gather(1, nh[:, None])[:, 0], _INF)
+            pick_leaf = lc <= nc
+            child = torch.where(active, torch.where(pick_leaf, lp, NL + nh), NL + T)
+            parent[b, child] = NL + nt
+            total += torch.where(active, torch.minimum(lc, nc), 0)
+            lp += active & pick_leaf
+            nh += active & ~pick_leaf
+        node_cnt[b, torch.where(active, nt, T)] = total
+        nt += active
+        remaining -= torch.where(active, n1, 0)
+
+    # internal depths from the root down (parents have larger ids), then leaves
+    depth = torch.zeros((B, NL + T + 1), dtype=torch.int64, device=dev)
+    for t in range(T - 1, -1, -1):
+        p = parent[:, NL + t]
+        depth[:, NL + t] = torch.where(p >= 0, depth.gather(1, p.clamp(min=0)[:, None])[:, 0] + 1,
+                                       0)
+    pl = parent[:, :NL]
+    leaf_depth = torch.where(pl >= 0, depth.gather(1, pl.clamp(min=0)) + 1, 0)
+    # sorted position -> seniority -> symbol
+    pos_of_sen = torch.zeros((B, 1 << _SEN_BITS), dtype=torch.int64, device=dev)
+    pos_of_sen.scatter_(1, leaf_sen, torch.arange(NL, device=dev).expand(B, NL))
+    lengths = leaf_depth.gather(1, pos_of_sen.gather(1, rank.clamp(min=0)))
+    lengths = torch.where(used, lengths, 0)
+    return torch.where(used & (k == 1)[:, None], 1, lengths)
+
+
+def huffman_lengths_ref(hists, arity):
+    """Plain PyTorch version (any device) of ``huffman_lengths``: the JAX
+    build's merge loop over all blocks at once, rebuilt with halved counts
+    while any block's longest code exceeds the cap (reading that
+    condition back each pass)."""
+    _, cap = _check(hists, arity)
+    f = hists.to(torch.int64)
+    lengths = _build_once_ref(f, arity)
+    while True:
+        over = lengths.max(1).values > cap if lengths.numel() else lengths.new_zeros(0).bool()
+        if not bool(over.any()):
+            return lengths.to(torch.int32)
+        f = torch.where(over[:, None] & (f > 0), (f + 1) // 2, f)
+        lengths = torch.where(over[:, None], _build_once_ref(f, arity), lengths)
+
+
+def huffman_lengths(hists, arity):
+    """Code lengths on the tensors' device: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors.  -> [B, 256] int32."""
+    if hists.device.type == "cpu":
+        return huffman_lengths_ref(hists, arity)
+    B, cap = _check(hists, arity)
+    hists = hists.to(torch.int64).contiguous()
+    _build.require_cuda(hists)
+    out = torch.empty((B, S), dtype=torch.int32, device=hists.device)
+    if B:
+        with torch.cuda.device(hists.device):
+            rc = _build.lib().dct_table_build(hists.data_ptr(), out.data_ptr(), B, arity, cap,
+                                              _build.stream_of(hists))
+        _build.check(rc, "table_build")
+        huffman_lengths.launches += 1
+    return out
+
+
+huffman_lengths.launches = 0

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import data_compression_tpu_torch as pt
-from data_compression_tpu_torch import framing, native
+from data_compression_tpu_torch import device_api, framing, native
 from data_compression_tpu_torch.config import ARITY_MAX_LEN, max_chunk_bytes, wire_bytes
 from data_compression_tpu_torch.huffman import batched as hb
 from data_compression_tpu_torch.huffman.batched import to_device
@@ -25,7 +25,9 @@ from data_compression_tpu_torch.ops.kernels import compact as kcmp
 from data_compression_tpu_torch.ops.kernels import copy as kcopy
 from data_compression_tpu_torch.ops.kernels import decode as kdec
 from data_compression_tpu_torch.ops.kernels import encode as kenc
+from data_compression_tpu_torch.ops.histogram import block_histograms
 from data_compression_tpu_torch.ops.kernels import microbench as kmb
+from data_compression_tpu_torch.ops.kernels import table_build as ktb
 from data_compression_tpu_torch.parallel import compress_sharded, decompress_sharded, make_mesh
 from data_compression_tpu_torch.parallel import multihost
 from data_compression_tpu_torch.tools import ablate, microbench, timing
@@ -629,3 +631,109 @@ def test_device_ms_of_the_copy_is_at_or_above_its_hbm_bound(cuda):
     dst = torch.empty_like(x)
     assert timing.device_ms(lambda: dst.copy_(x)) >= bound_ms
 
+
+
+# ---- the device-resident pipeline and its table-build kernel ------------
+
+def _table_hists():
+    """Random, zipf, sparse, one-symbol, empty, flat and huge-count
+    histograms, Fibonacci counts (a 44-digit tree at n = 2) and geometric
+    counts whose capped tree reaches the length cap at n = 2, 3 and 16,
+    then the block histograms of the 8-block input."""
+    rng = np.random.default_rng(21)
+    rows = [rng.integers(0, 1000, 256),
+            np.bincount(rng.zipf(1.3, 65536).clip(1, 256) - 1, minlength=256),
+            np.zeros(256, np.int64), np.ones(256, np.int64),
+            np.arange(256, dtype=np.int64) * (1 << 26)]
+    rows[2][[3, 77, 200]] = [5, 9, 1]
+    single = np.zeros(256, np.int64)
+    single[42] = 7
+    fib = np.zeros(256, np.int64)
+    fib[:45] = [1, 1] + [0] * 43
+    for i in range(2, 45):
+        fib[i] = fib[i - 1] + fib[i - 2]
+    geometric = np.minimum(1.3 ** np.arange(256), 2.0**40).astype(np.int64) + 1
+    blocks, lengths = framing.split_blocks(_data(), 65536)
+    data = [np.bincount(blocks[i, :lengths[i]], minlength=256) for i in range(len(lengths))]
+    return np.stack(rows + [single, np.zeros(256, np.int64), fib, geometric] + data).astype(np.int64)
+
+
+@pytest.mark.parametrize("n", ARITIES + [10, 64])
+def test_table_build_kernel_matches_plain_and_native(cuda, n):
+    hists = _table_hists()
+    before = ktb.huffman_lengths.launches
+    got = ktb.huffman_lengths(torch.from_numpy(hists).to(cuda), n)
+    assert ktb.huffman_lengths.launches == before + 1 and got.dtype == torch.int32
+    assert np.array_equal(got.cpu().numpy(), hb.capped_lengths_batch(hists, n))
+    assert torch.equal(got.cpu(), ktb.huffman_lengths_ref(torch.from_numpy(hists), n))
+    if n in ARITIES:
+        assert int(got[8].max()) == ARITY_MAX_LEN[n]  # the geometric row, at the cap
+    # int32 counts, as the JAX function takes them, give the same lengths
+    small = (hists < 2**31).all(1)
+    got32 = ktb.huffman_lengths(torch.from_numpy(hists[small].astype(np.int32)).to(cuda), n)
+    assert torch.equal(got32, got[torch.from_numpy(small).to(cuda)])
+
+
+def test_histograms_make_no_host_read(cuda):
+    blocks, lengths = framing.split_blocks(_data(), 65536)
+    dev_blocks = torch.from_numpy(blocks).to(cuda)
+    dev_lens = torch.from_numpy(lengths.astype(np.int32)).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hists = block_histograms(dev_blocks, dev_lens)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = np.stack([np.bincount(blocks[i, :lengths[i]], minlength=256)
+                     for i in range(len(lengths))])
+    assert np.array_equal(hists.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("n", ARITIES)
+def test_device_pipeline_makes_no_host_read(cuda, n):
+    """``compress_blocks_device`` under ``set_sync_debug_mode("error")``;
+    its frame is ``compress``'s and ``decode_blocks_device`` gives the
+    input back; each kernel of the path launched once."""
+    data = _data()
+    cfg = pt.CodecConfig(arity=n)
+    blocks, lengths = framing.split_blocks(data, cfg.block_size)
+    dev_blocks = torch.from_numpy(blocks).to(cuda)
+    dev_lens = torch.from_numpy(lengths.astype(np.int32)).to(cuda)
+    wrappers = (ktb.huffman_lengths, kenc.encode_blocks, kcmp.compact_blocks)
+    before = [w.launches for w in wrappers]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dc = device_api.compress_blocks_device(dev_blocks, dev_lens, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1]
+    assert device_api.to_frame(dc, dev_blocks, cfg) == pt.compress(data, cfg, device=cuda)
+    out = device_api.decode_blocks_device(*device_api.chunk_inputs(dc), dc.table_rows, n,
+                                          cfg.chunk_syms)
+    out = out.view(dev_blocks.shape)
+    valid = torch.arange(cfg.block_size, device=cuda)[None, :] < dev_lens[:, None]
+    assert torch.equal(out[valid], dev_blocks[valid])
+
+
+def test_device_pipeline_overflow_compacts_again_on_download(cuda):
+    """A capacity below the payload: ``flat`` holds its first bytes and
+    ``download`` compacts again; random bytes at the default capacity
+    B * S give ``compress``'s frame either way."""
+    rng = np.random.default_rng(5)
+    cfg = pt.CodecConfig()
+    for data, out_cap in ((_data(), 1000), (rng.integers(0, 256, 3 * 65536, dtype=np.uint8).tobytes(),
+                                           None)):
+        blocks, lengths = framing.split_blocks(data, cfg.block_size)
+        dev_blocks = torch.from_numpy(blocks).to(cuda)
+        dc = device_api.compress_blocks_device(dev_blocks, torch.from_numpy(lengths), cfg,
+                                               out_cap=out_cap)
+        total = int(dc.total)
+        flat = dc.download()[0]
+        assert flat.size == total
+        cap = dc.flat.numel()
+        n = min(cap, total)
+        assert np.array_equal(flat[:n], dc.flat[:n].cpu().numpy())
+        assert device_api.to_frame(dc, blocks, cfg) == pt.compress(data, cfg, device="cpu")
+        if out_cap is not None:
+            assert total > cap == out_cap

@@ -398,11 +398,22 @@ def test_split_blocks_match():
 
 
 def test_printable_container_not_ported():
+    """The printable container, once the one part of framing left
+    unported, is now read as the JAX package reads it: ``unpack_frame``
+    rejects the printable bytes with the original's ValueError, and
+    ``read_frame`` / ``printable_to_frame`` give the original's binary
+    frame, which ``frame_to_printable`` turns back into the same text."""
     from data_compression_tpu import compress as jcompress
 
     blob = jcompress(b"hello world " * 50,
                      JConfig(block_size=4096, use_device=False), printable=True)
-    with pytest.raises(NotImplementedError):
-        pframing.unpack_frame(blob)
-    with pytest.raises(NotImplementedError):
-        pframing.read_frame(io.BytesIO(blob))
+    errors = []
+    for unpack in (jframing.unpack_frame, pframing.unpack_frame):
+        with pytest.raises(ValueError) as e:
+            unpack(blob)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1] == "bad magic b'DCTP'"
+    binary = jframing.read_frame(io.BytesIO(blob))
+    assert pframing.read_frame(io.BytesIO(blob)) == binary
+    assert pframing.printable_to_frame(blob) == binary
+    assert pframing.frame_to_printable(binary) == blob

@@ -129,9 +129,10 @@ def test_truncated_and_oversized_chunks_raise_value_error():
 
 
 def test_not_ported_paths_raise_not_implemented():
-    """Only the printable container is left unported; every codec of
-    CODEC_IDS decodes (the JAX package's nybble frame, also at a block
-    size above 4096 that 4096 does not divide), and an unknown codec name
+    """No path is left unported: every codec of CODEC_IDS decodes (the
+    JAX package's nybble frame, also at a block size above 4096 that 4096
+    does not divide), the JAX package's printable container decodes and
+    the port writes the same printable bytes, and an unknown codec name
     raises ValueError."""
     text = b"hello hello hello " * 500
     for block_size in (65536, 6144):
@@ -139,8 +140,8 @@ def test_not_ported_paths_raise_not_implemented():
                                                use_device=False))
         assert pt.decompress(nyb, device="cpu") == text
     printable = jx.compress(text, jx.CodecConfig(use_device=False), printable=True)
-    with pytest.raises(NotImplementedError):
-        pt.decompress(printable, device="cpu")
+    assert pt.decompress(printable, device="cpu") == text
+    assert pt.compress(text, device="cpu", printable=True) == printable
     with pytest.raises(ValueError):
         pt.CodecConfig(codec="bogus")
     with pytest.raises(ValueError, match="unknown codec"):
