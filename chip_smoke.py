@@ -11,8 +11,8 @@ script exits non-zero without a result line):
   1. print the card (``nvidia-smi`` name and power limit);
   2. build the CUDA kernels from ``data_compression_tpu_torch/csrc``,
      and print ``nvcc -Xptxas -v``'s registers, stack and spill bytes of
-     the encode and compaction kernels (``_build.ptxas_usage``),
-     requiring 0 stack and 0 spill; build the native C runtime
+     the encode, compaction, histogram and table-build kernels
+     (``_build.ptxas_usage``), requiring 0 stack and 0 spill; build the native C runtime
      (``data_compression_tpu_torch/native/libdctpu.c``, by ``cc``) and
      print its build seconds and whether it runs with OpenMP;
   3. at each Huffman arity with kernels (2, 16, 3), run each kernel
@@ -71,13 +71,20 @@ script exits non-zero without a result line):
      under 128 MiB (8 batches), and ``torch.cuda.max_memory_allocated``
      are printed; a printable round trip of one 16 MiB batch must be
      exact;
- 10. the device-resident pipeline at n = 2, 16 and 3 on the 64 MiB
-     input: the table-build kernel's code lengths must equal its plain
+ 10. the histogram kernel against its plain version (``index_add_``)
+     on the 64 MiB input and on 64 MiB of one byte value, and on the
+     first 256 blocks of each (one streamed batch, whose rows the kernel
+     cuts into slices on the card), byte for byte, all timed; then the device-resident pipeline at n = 2, 16
+     and 3 on the 64 MiB input: the table-build kernel's code lengths and
+     encode table (``build_tables``, one launch) must equal its plain
      version's and the native builder's; ``compress_blocks_device`` runs
      under ``torch.cuda.set_sync_debug_mode("error")`` (no host read)
      and its frame must equal phase 4's; ``decode_blocks_device`` must
      give back the input; device GB/s of each direction (best of 3
      chains, CUDA events) are printed beside the time of each stage.
+
+Every compress path runs the histogram kernel: its launches must be > 0
+in phases 4, 5, 9 (the streamed compress child) and 10.
 
 The line before the last is a JSON object of the kernels, one entry
 per kernel and arity (name, arity, route, source, the TPU kernel it
@@ -85,9 +92,18 @@ replaces, launches in that arity's runs of phases 4, 5 and 10, or for
 the tools' kernels in phase 7, each counted from 0, max abs error against
 the plain version, ms per call, plain ms per call, the bound: the
 bytes the call must move at 3.35 TB/s (the table build's: its
-histograms in and its code lengths out; its "replaces" names the JAX
-function, which reaches no Pallas kernel), and library ms, the time of one
-PyTorch call computing the same function, or null; the compaction
+histograms in, its code lengths and encode table out; the histogram's:
+the valid bytes and lengths in, the counts out; the "replaces" of
+these two names the JAX function, which reaches no Pallas kernel), and
+library ms, the time of one PyTorch call computing the same function,
+or null; the histogram has one entry (arity null) whose launches sum
+phases 4, 5, 9 and 10, whose library ms is its ``index_add_`` plain
+version's, ``one_value_ms`` / ``one_value_plain_ms`` on the
+one-value input, and ``batch_*`` on the first 256 blocks
+(``batch_slices`` slices a row); the table build's ``lengths_only_ms`` is the same
+kernel writing lengths alone (``huffman_lengths``); the histogram and
+the table build have ``device_ms`` (their chain times include the
+wrapper's enqueue, which can outlast the kernel); the compaction
 entries have ``device_ms``, the copy kernel's ``device_ms`` and
 ``library_device_ms``: device time per call by torch.profiler,
 ``tools.timing.device_ms``, null where no profiler session held every
@@ -146,11 +162,13 @@ KERNELS = [
 ]
 # the kernels each path runs: the single-device slice and the sharded
 # pipeline; the profiling tools' own kernels are in tool_kernels()
-SLICE_KERNELS = ("huffman_encode", "compact", "huffman_decode")
-SHARDED_KERNELS = ("huffman_encode_rows", "huffman_decode")
-DEVICE_KERNELS = ("table_build", "huffman_encode", "compact", "huffman_decode")
+SLICE_KERNELS = ("histogram", "huffman_encode", "compact", "huffman_decode")
+SHARDED_KERNELS = ("histogram", "huffman_encode_rows", "huffman_decode")
+DEVICE_KERNELS = ("histogram", "table_build", "huffman_encode", "compact", "huffman_decode")
 TABLE_BUILD = ("table_build", "data_compression_tpu_torch/csrc/table_build.cu",
                "data_compression_tpu/ops/table_build.py:230")
+HISTOGRAM = ("histogram", "data_compression_tpu_torch/csrc/histogram.cu",
+             "data_compression_tpu/ops/histogram.py:23")
 STREAM_COPIES = 16  # phase 9: copies of the 64 MiB input in the streamed file
 RSS_GROWTH_LIMIT = 128 * MIB  # phase 9: 8 batches of 16 MiB
 # phase 9's child: the CLI as ``python -m`` runs it, then on stderr its
@@ -180,14 +198,14 @@ except SystemExit as e:
     if e.code:
         raise
 import torch
-from data_compression_tpu_torch.ops.kernels import compact, decode, encode, table_build
+from data_compression_tpu_torch.ops.kernels import compact, decode, encode, histogram
 print("CHILD " + json.dumps({
     "peak_rss": peak[0],
     "max_memory_allocated": torch.cuda.max_memory_allocated(),
-    "launches": {"huffman_encode": encode.encode_blocks.launches,
+    "launches": {"histogram": histogram.block_histograms.launches,
+                 "huffman_encode": encode.encode_blocks.launches,
                  "compact": compact.compact_blocks.launches,
-                 "huffman_decode": decode.decode_chunks.launches,
-                 "table_build": table_build.huffman_lengths.launches}}), file=sys.stderr)
+                 "huffman_decode": decode.decode_chunks.launches}}), file=sys.stderr)
 """
 # Huffman arities with kernels, and the symbols of a complete tree at the
 # length cap for each of n = 3 and 16 (1 + a multiple of n - 1)
@@ -508,7 +526,7 @@ def table_phase(data: bytes, dev, host: str) -> None:
     from data_compression_tpu_torch.config import ARITY_MAX_LEN
     from data_compression_tpu_torch.huffman import batched as hb
     from data_compression_tpu_torch.models.huffman import HuffmanCodec
-    from data_compression_tpu_torch.ops.histogram import block_histograms
+    from data_compression_tpu_torch.ops.kernels.histogram import block_histograms
 
     cfg = CodecConfig()
     blocks, lengths = framing.split_blocks(data, cfg.block_size)
@@ -674,8 +692,9 @@ def same_files(a: Path, b: Path) -> bool:
                 return True
 
 
-def stream_phase(data: bytes, card: str) -> None:
-    """The streamed CLI on a 1 GiB file against its one-batch baseline."""
+def stream_phase(data: bytes, card: str) -> dict:
+    """The streamed CLI on a 1 GiB file against its one-batch baseline;
+    -> the kernel launches of the 1 GiB file's compress child."""
     import numpy as np
 
     from data_compression_tpu_torch import CodecConfig, api, compress, decompress, framing
@@ -702,7 +721,7 @@ def stream_phase(data: bytes, card: str) -> None:
             if not same_files(path, back):
                 raise AssertionError(f"streamed round trip ({name}) is not exact")
             for label, rep in (("compress", c), ("decompress", d)):
-                kernels = SLICE_KERNELS[:2] if label == "compress" else SLICE_KERNELS[2:]
+                kernels = SLICE_KERNELS[:3] if label == "compress" else SLICE_KERNELS[3:]
                 if not all(rep["launches"][k] > 0 for k in kernels):
                     raise AssertionError(f"{label} {name}: a kernel never launched: "
                                          f"{rep['launches']}")
@@ -738,6 +757,7 @@ def stream_phase(data: bytes, card: str) -> None:
             if growth > RSS_GROWTH_LIMIT:
                 raise AssertionError(f"streamed {label} RSS grew {growth / MIB:.1f} MiB")
         log(f"stream: {frames} frames; frames 0 and {frames - 1} == compress of their slices")
+        launches = reports["1 GiB"][0]["launches"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     t0 = time.perf_counter()
@@ -748,6 +768,74 @@ def stream_phase(data: bytes, card: str) -> None:
     log(f"stream printable: one batch ({batch} bytes -> {len(text)} printable) round trip exact; "
         f"compress {(t1 - t0) * 1e3:.1f} ms, decompress {(time.perf_counter() - t1) * 1e3:.1f} ms "
         "(host wall)")
+    return launches
+
+
+def histogram_phase(data: bytes, dev, card: str) -> dict:
+    """The histogram kernel against its plain version (``index_add_``) on
+    the 64 MiB input and on 64 MiB of one byte value (0, zero padding),
+    and on the first streamed batch's 256 blocks of each, whose rows the
+    kernel cuts into slices (phase 9's shape), byte for byte; -> its
+    kernels-line entry, with the one-value and the batch's times."""
+    import numpy as np
+    import torch
+
+    from data_compression_tpu_torch import CodecConfig, api, framing
+    from data_compression_tpu_torch.ops.kernels import histogram as khist
+    from data_compression_tpu_torch.tools import timing
+
+    blocks, lengths = framing.split_blocks(data, CodecConfig().block_size)
+    dev_blocks = torch.from_numpy(blocks).to(dev)
+    dev_lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+    one = torch.zeros_like(dev_blocks)
+    everywhere = torch.ones((dev_blocks.shape[0], 256), dtype=torch.bool, device=dev)
+    got = khist.block_histograms(dev_blocks, dev_lens)
+    err = max_abs_err(got, khist.block_histograms_ref(dev_blocks, dev_lens), everywhere)
+    want = np.stack([np.bincount(blocks[i, :lengths[i]], minlength=256)
+                     for i in range(len(lengths))])
+    if not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError("histogram kernel differs from numpy's counts")
+    one_err = max_abs_err(khist.block_histograms(one, dev_lens),
+                          khist.block_histograms_ref(one, dev_lens), everywhere)
+    batch = api.DEFAULT_BATCH_BLOCKS
+    slices = khist.slices_for(batch, blocks.shape[1],
+                              torch.cuda.get_device_properties(dev).multi_processor_count)
+    if slices < 2:
+        raise AssertionError(f"a batch of {batch} blocks is not cut into slices ({slices})")
+    part, part_lens, part_one = dev_blocks[:batch], dev_lens[:batch], one[:batch]
+    got_part = khist.block_histograms(part, part_lens)
+    batch_err = max(max_abs_err(got_part, khist.block_histograms_ref(part, part_lens),
+                                everywhere[:batch]),
+                    max_abs_err(khist.block_histograms(part_one, part_lens),
+                                khist.block_histograms_ref(part_one, part_lens), everywhere[:batch]))
+    if not np.array_equal(got_part.cpu().numpy(), want[:batch]):
+        raise AssertionError("histogram kernel (sliced rows) differs from numpy's counts")
+    plain_ms = chain_ms(lambda: khist.block_histograms_ref(dev_blocks, dev_lens))
+    entry = dict(
+        max_abs_err=max(err, one_err, batch_err),
+        ms=chain_ms(lambda: khist.block_histograms(dev_blocks, dev_lens)),
+        device_ms=timing.device_ms_or_none(lambda: khist.block_histograms(dev_blocks, dev_lens)),
+        plain_ms=plain_ms,
+        bound_ms=bound_ms(int(lengths.sum()) + nbytes_of(dev_lens, got)), bound_by="bytes",
+        library_ms=plain_ms,  # the plain version is one index_add_ (and its index math)
+        one_value_ms=chain_ms(lambda: khist.block_histograms(one, dev_lens)),
+        one_value_plain_ms=chain_ms(lambda: khist.block_histograms_ref(one, dev_lens)),
+        batch_slices=slices,
+        batch_ms=chain_ms(lambda: khist.block_histograms(part, part_lens)),
+        batch_one_value_ms=chain_ms(lambda: khist.block_histograms(part_one, part_lens)),
+        batch_plain_ms=chain_ms(lambda: khist.block_histograms_ref(part, part_lens)),
+        batch_bound_ms=bound_ms(int(lengths[:batch].sum()) + nbytes_of(part_lens, got_part)),
+    )
+    log(f"kernel histogram: 64 MiB text and 64 MiB of one byte value equal the plain version, "
+        f"and so do their first {batch} blocks ({slices} slices a row) "
+        f"(max_abs_err {entry['max_abs_err']}); kernel {entry['ms']:.4f} ms (device "
+        f"{fmt_ms(entry['device_ms'])}), one value "
+        f"{entry['one_value_ms']:.4f} ms; plain (index_add_) {entry['plain_ms']:.4f} ms, one "
+        f"value {entry['one_value_plain_ms']:.4f} ms; bound {entry['bound_ms']:.4f} ms; "
+        f"{batch} blocks: kernel {entry['batch_ms']:.4f} ms, one value "
+        f"{entry['batch_one_value_ms']:.4f} ms, plain {entry['batch_plain_ms']:.4f} ms, bound "
+        f"{entry['batch_bound_ms']:.4f} ms; card {card}")
+    return entry
 
 
 def device_phase(data: bytes, blobs: dict, dev, card: str, count_launches) -> tuple:
@@ -759,10 +847,11 @@ def device_phase(data: bytes, blobs: dict, dev, card: str, count_launches) -> tu
     from data_compression_tpu_torch import CodecConfig, device_api, framing
     from data_compression_tpu_torch.huffman import batched as hb
     from data_compression_tpu_torch.ops import table_build as tbd
-    from data_compression_tpu_torch.ops.histogram import block_histograms
     from data_compression_tpu_torch.ops.kernels import decode as kdecode
     from data_compression_tpu_torch.ops.kernels import encode as kencode
     from data_compression_tpu_torch.ops.kernels import table_build as ktb
+    from data_compression_tpu_torch.ops.kernels.histogram import block_histograms
+    from data_compression_tpu_torch.tools import timing
 
     blocks, lengths = framing.split_blocks(data, CodecConfig().block_size)
     dev_blocks = torch.from_numpy(blocks).to(dev)
@@ -774,15 +863,24 @@ def device_phase(data: bytes, blobs: dict, dev, card: str, count_launches) -> tu
     for n in ARITIES:
         cfg = CodecConfig(arity=n)
         C = cfg.chunk_syms
-        lengths_k = ktb.huffman_lengths(hists, n)
-        lengths_r = ktb.huffman_lengths_ref(hists, n)
-        if not np.array_equal(lengths_k.cpu().numpy(), hb.capped_lengths_batch(host_hists, n)):
+        lengths_k, dense_k = ktb.build_tables(hists, n)
+        lengths_r, dense_r = ktb.build_tables_ref(hists, n)
+        native = hb.capped_lengths_batch(host_hists, n)
+        native_dense = hb.dense_rows(hb.codes_batch(native, n)).reshape(len(native), -1)
+        if not (np.array_equal(lengths_k.cpu().numpy(), native)
+                and np.array_equal(ktb.huffman_lengths(hists, n).cpu().numpy(), native)):
             raise AssertionError(f"table build n={n}: lengths differ from the native builder's")
+        if not np.array_equal(dense_k.cpu().numpy(), native_dense):
+            raise AssertionError(f"table build n={n}: encode table differs from the native one")
         entries[n] = dict(
-            max_abs_err=max_abs_err(lengths_k, lengths_r, torch.ones_like(lengths_k, dtype=torch.bool)),
-            ms=chain_ms(lambda: ktb.huffman_lengths(hists, n)),
-            plain_ms=chain_ms(lambda: ktb.huffman_lengths_ref(hists, n), 1),
-            bound_ms=bound_ms(nbytes_of(hists, lengths_k)), bound_by="bytes", library_ms=None,
+            max_abs_err=max(max_abs_err(lengths_k, lengths_r, torch.ones_like(lengths_k).bool()),
+                            max_abs_err(dense_k, dense_r, torch.ones_like(dense_k).bool())),
+            ms=chain_ms(lambda: ktb.build_tables(hists, n)),
+            device_ms=timing.device_ms_or_none(lambda: ktb.build_tables(hists, n)),
+            plain_ms=chain_ms(lambda: ktb.build_tables_ref(hists, n), 1),
+            bound_ms=bound_ms(nbytes_of(hists, lengths_k, dense_k)), bound_by="bytes",
+            library_ms=None,
+            lengths_only_ms=chain_ms(lambda: ktb.huffman_lengths(hists, n)),
         )
 
         def run():
@@ -801,14 +899,12 @@ def device_phase(data: bytes, blobs: dict, dev, card: str, count_launches) -> tu
             raise AssertionError(f"device pipeline n={n}: decode did not give back the input")
         inputs = device_api.chunk_inputs(dc)
         lim, bmf, syms = tbd.decode_tables_device(dc.table_rows, n)
-        dense, _ = tbd.encode_tables_device(lengths_k, n)
-        rows, digits, bb = kencode.encode_blocks(dev_blocks, dev_lens, dense, C, n)
+        rows, digits, bb = kencode.encode_blocks(dev_blocks, dev_lens, dense_k, C, n)
         total = int(bb.long().sum())
         stage = {
-            "histogram (index_add_)": chain_ms(lambda: block_histograms(dev_blocks, dev_lens)),
-            "table build kernel": entries[n]["ms"],
-            "encode tables (torch ops)": chain_ms(lambda: tbd.encode_tables_device(lengths_k, n)),
-            "encode kernel": chain_ms(lambda: kencode.encode_blocks(dev_blocks, dev_lens, dense,
+            "histogram kernel": chain_ms(lambda: block_histograms(dev_blocks, dev_lens)),
+            "table build kernel (lengths and encode table)": entries[n]["ms"],
+            "encode kernel": chain_ms(lambda: kencode.encode_blocks(dev_blocks, dev_lens, dense_k,
                                                                     C, n)),
             "compaction kernel, out_cap B*S": chain_ms(
                 lambda: device_api._compact_into(rows, bb, dev_blocks.numel())),
@@ -828,8 +924,11 @@ def device_phase(data: bytes, blobs: dict, dev, card: str, count_launches) -> tu
             "decompress includes its input check's host read); stages ms: "
             + ", ".join(f"{k} {v:.4f}" for k, v in stage.items()) + f"; card {card}")
         e = entries[n]
-        log(f"kernel table_build n={n}: max_abs_err {e['max_abs_err']} kernel {e['ms']:.4f} ms "
-            f"plain {e['plain_ms']:.4f} ms bound {e['bound_ms']:.4f} ms")
+        log(f"kernel table_build n={n}: lengths == native == plain, encode table == native == "
+            f"plain (max_abs_err {e['max_abs_err']}); kernel {e['ms']:.4f} ms (device "
+            f"{fmt_ms(e['device_ms'])}; lengths only "
+            f"{e['lengths_only_ms']:.4f} ms) plain {e['plain_ms']:.4f} ms bound "
+            f"{e['bound_ms']:.4f} ms")
         del dc, out, inputs
         torch.cuda.empty_cache()
     return launches, entries
@@ -871,7 +970,7 @@ def main() -> int:
     _build.lib()
     log(f"kernel build: {time.perf_counter() - t0:.3f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
-    for source in ("huffman_encode.cu", "compact.cu"):
+    for source in ("huffman_encode.cu", "compact.cu", "histogram.cu", "table_build.cu"):
         usage = _build.ptxas_usage(source)
         for fn, u in sorted(usage.items()):
             log(f"ptxas {source} {fn}: {u}")
@@ -895,7 +994,9 @@ def main() -> int:
     table_phase(data, dev, host)
     wrappers = {name: getattr(mods[m], w) for name, m, w, *_ in KERNELS}
     wrappers["table_build"] = importlib.import_module(
-        "data_compression_tpu_torch.ops.kernels.table_build").huffman_lengths
+        "data_compression_tpu_torch.ops.kernels.table_build").build_tables
+    wrappers["histogram"] = importlib.import_module(
+        "data_compression_tpu_torch.ops.kernels.histogram").block_histograms
     wrappers["copy"] = mods["copy"].copy_blocks
     wrappers.update({f"lookup_{v}": fn for v, fn in mods["microbench"].WRAPPERS.items()})
 
@@ -978,9 +1079,10 @@ def main() -> int:
     serial_phase(data, card, host)
 
     # -- 9. streamed files through the CLI on cuda
-    stream_phase(data, card)
+    stream_launches = stream_phase(data, card)
 
     # -- 10. the device-resident pipeline
+    hist_result = histogram_phase(data, dev, card)
     device_launches, table_results = device_phase(data, blobs, dev, card, count_launches)
 
     log(f"card: {card}")
@@ -991,6 +1093,13 @@ def main() -> int:
              **results[n][name])
         for n in ARITIES
         for name, _, _, _, src, rep in KERNELS
+    ] + [
+        dict(name=HISTOGRAM[0], arity=None, route="cuda", source=HISTOGRAM[1],
+             replaces=HISTOGRAM[2],
+             launches=sum(runs[n]["histogram"] for runs in (slice_launches, sharded_launches,
+                                                            device_launches) for n in ARITIES)
+             + stream_launches["histogram"],
+             **hist_result)
     ] + [
         dict(name=TABLE_BUILD[0], arity=n, route="cuda", source=TABLE_BUILD[1],
              replaces=TABLE_BUILD[2], launches=device_launches[n]["table_build"],

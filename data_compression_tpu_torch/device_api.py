@@ -3,13 +3,15 @@ go to compressed payloads with no host read in between.
 
 Counterpart of ``data_compression_tpu/device_api.py``.  ``api.compress``
 serves bytes on the host; this module serves a producer whose data
-already lives on the card.  ``compress_blocks_device`` runs per-block
-histogram (``ops/histogram.py``, sync-free) -> code lengths (the
-table-build kernel) -> encode tables (torch ops) -> the compact encode
-kernel -> wire bytes from the digit counts -> the compaction kernel,
-every step queued on the current stream, and returns a handle whose
-tensors stay on the device.  Only ``DeviceCompressed.download`` reads
-back: the payload total, and so whether the output fitted its capacity.
+already lives on the card.  ``compress_blocks_device`` runs four
+kernels on the current stream: the per-block histogram
+(``ops/kernels/histogram.py``) -> code lengths and the encode table in
+one launch (``ops/kernels/table_build.py`` ``build_tables``) -> the
+compact encode kernel -> the compaction kernel, with no torch op between
+them but the payload total and the digit counts' wire bytes, and
+returns a handle whose tensors stay on the device.  Only
+``DeviceCompressed.download`` reads back: the payload total, and so
+whether the output fitted its capacity.
 ``decode_blocks_device`` derives the decode tables from the wire length
 rows on the device and runs the decode kernel.
 
@@ -33,15 +35,12 @@ from data_compression_tpu_torch import api
 from data_compression_tpu_torch.config import CodecConfig, wire_bytes
 from data_compression_tpu_torch.models.base import EncodeResult
 from data_compression_tpu_torch.models.huffman import HuffmanCodec
-from data_compression_tpu_torch.ops.histogram import block_histograms
 from data_compression_tpu_torch.ops.kernels import compact as kcompact
 from data_compression_tpu_torch.ops.kernels import decode as kdecode
 from data_compression_tpu_torch.ops.kernels import encode as kencode
-from data_compression_tpu_torch.ops.table_build import (
-    decode_tables_device,
-    encode_tables_device,
-    huffman_lengths_device,
-)
+from data_compression_tpu_torch.ops.kernels.histogram import block_histograms
+from data_compression_tpu_torch.ops.kernels.table_build import build_tables
+from data_compression_tpu_torch.ops.table_build import decode_tables_device
 
 
 @dataclasses.dataclass
@@ -130,8 +129,7 @@ def compress_blocks_device(
     cap = B * S if out_cap is None else out_cap
     if cap < 0:
         raise ValueError(f"out_cap must be >= 0, got {cap}")
-    lengths = huffman_lengths_device(block_histograms(blocks, lens), arity)
-    dense, _ = encode_tables_device(lengths, arity)
+    lengths, dense = build_tables(block_histograms(blocks, lens), arity)
     rows, digits, block_bytes = kencode.encode_blocks(blocks, lens, dense, C, arity)
     return DeviceCompressed(
         flat=_compact_into(rows, block_bytes, cap), nb=wire_bytes(digits, arity),

@@ -44,7 +44,7 @@ from data_compression_tpu_torch.huffman import batched as hb
 from data_compression_tpu_torch.huffman.canonical import CanonicalTable
 from data_compression_tpu_torch.huffman.tree import huffman_lengths
 from data_compression_tpu_torch.models.base import Codec, EncodeResult
-from data_compression_tpu_torch.ops.histogram import block_histograms
+from data_compression_tpu_torch.ops.kernels.histogram import block_histograms
 from data_compression_tpu_torch.ops.kernels import compact as kcompact
 from data_compression_tpu_torch.ops.kernels import decode as kdecode
 from data_compression_tpu_torch.ops.kernels import encode as kencode

@@ -1,26 +1,30 @@
-"""Capped canonical Huffman code lengths on the device (kernel:
-``csrc/table_build.cu``).
+"""Capped canonical Huffman code lengths, and the encode kernel's table,
+on the device (kernel: ``csrc/table_build.cu``).
 
 Replaces ``data_compression_tpu/ops/table_build.py``
-``huffman_lengths_device``, which is no Pallas kernel but a ``lax.scan``
-over the merges, vectorised across blocks, inside a ``lax.while_loop``
-for the length cap.  In:
+``huffman_lengths_device`` and ``encode_tables_device``: no Pallas
+kernel, but a ``lax.scan`` over the merges, vectorised across blocks,
+inside a ``lax.while_loop`` for the length cap, then ``jnp`` ops.  In:
 
   hists [B, 256] — per-block byte counts (any integer type; int64 is
-      read as it is, others are converted).
+      read as it is, others are converted); a row's total below 2**54.
 
-Out: [B, 256] int32 code lengths in base-n digits under the cap
-``ARITY_MAX_LEN[n]``, bit-identical to the host builder
+Out of ``huffman_lengths``: [B, 256] int32 code lengths in base-n digits
+under the cap ``ARITY_MAX_LEN[n]``, bit-identical to the host builder
 (``huffman.batched.capped_lengths_batch``, the native
 ``dct_huffman_capped_lengths_batch``) and to the JAX function: leaves
 keyed on (count, seniority) with the dummies of count 1 after the used
 symbols, the leaf popped on a tie, internal nodes first in, first out;
 while a tree is too deep its nonzero counts become ``(c + 1) // 2``.
-Any arity 2..64 builds; the device pipeline uses 2, 3 and 16.
+Any arity 2..64 builds.  ``build_tables`` (n = 2, 3 and 16, the arities
+with encode kernels) also gives the encode kernel's table ``dense``, the
+layout of ``ops.table_build.encode_tables_device``, from the same
+launch.
 
-The plain version ``huffman_lengths_ref`` is a torch transcription of
-the JAX build, B blocks wide per merge step, in int64 (a block's
-counts may sum past 2**31 there too).
+The plain versions: ``huffman_lengths_ref``, a torch transcription of
+the JAX build, B blocks wide per merge step, in int64 (a block's counts
+may sum past 2**31 there too); ``build_tables_ref``, that followed by
+``encode_tables_device``.
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ from __future__ import annotations
 import torch
 
 from data_compression_tpu_torch.config import ARITY_MAX_LEN
+from data_compression_tpu_torch.huffman.batched import BITS_PER_DIGIT, PACKED_LEN_SHIFT
 from data_compression_tpu_torch.ops.kernels import _build
+from data_compression_tpu_torch.ops.table_build import _kernel_arity, encode_tables_device
 
 S = 256  # alphabet
 MAXD = 64  # >= arity - 2 dummy leaves
@@ -118,22 +124,62 @@ def huffman_lengths_ref(hists, arity):
         lengths = torch.where(over[:, None], _build_once_ref(f, arity), lengths)
 
 
+def _launch(hists, arity, with_table):
+    """One kernel launch: -> (lengths, dense or None)."""
+    B, cap = _check(hists, arity)
+    hists = hists.to(torch.int64).contiguous()
+    _build.require_cuda(hists)
+    dev = hists.device
+    lengths = torch.empty((B, S), dtype=torch.int32, device=dev)
+    dense, mode, shift, bpd = None, 0, 0, 0
+    if with_table:
+        bpd = BITS_PER_DIGIT[arity]
+        shift = PACKED_LEN_SHIFT.get(arity, 0)
+        mode = 1 if arity in PACKED_LEN_SHIFT else 2
+        dense = torch.empty((B, S * mode), dtype=torch.int32, device=dev)
+    if B:
+        with torch.cuda.device(dev):
+            rc = _build.lib().dct_table_build(
+                hists.data_ptr(), lengths.data_ptr(), 0 if dense is None else dense.data_ptr(),
+                B, arity, cap, mode, shift, bpd, _build.stream_of(hists))
+        _build.check(rc, "table_build")
+    return lengths, dense
+
+
 def huffman_lengths(hists, arity):
     """Code lengths on the tensors' device: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors.  -> [B, 256] int32."""
     if hists.device.type == "cpu":
         return huffman_lengths_ref(hists, arity)
-    B, cap = _check(hists, arity)
-    hists = hists.to(torch.int64).contiguous()
-    _build.require_cuda(hists)
-    out = torch.empty((B, S), dtype=torch.int32, device=hists.device)
-    if B:
-        with torch.cuda.device(hists.device):
-            rc = _build.lib().dct_table_build(hists.data_ptr(), out.data_ptr(), B, arity, cap,
-                                              _build.stream_of(hists))
-        _build.check(rc, "table_build")
+    lengths, _ = _launch(hists, arity, False)
+    if lengths.shape[0]:
         huffman_lengths.launches += 1
-    return out
+    return lengths
 
 
 huffman_lengths.launches = 0
+
+
+def build_tables_ref(hists, arity):
+    """Plain PyTorch version (any device) of ``build_tables``."""
+    _kernel_arity(arity)
+    lengths = huffman_lengths_ref(hists, arity)
+    dense, _ = encode_tables_device(lengths, arity)
+    return lengths, dense
+
+
+def build_tables(hists, arity):
+    """Code lengths and the encode table on the tensors' device, one
+    launch for CUDA tensors, the plain version for CPU tensors.  ->
+    (lengths [B, 256] int32, dense [B, 256] int32 at n = 2 and 16,
+    [B, 512] at n = 3)."""
+    if hists.device.type == "cpu":
+        return build_tables_ref(hists, arity)
+    _kernel_arity(arity)
+    lengths, dense = _launch(hists, arity, True)
+    if lengths.shape[0]:
+        build_tables.launches += 1
+    return lengths, dense
+
+
+build_tables.launches = 0

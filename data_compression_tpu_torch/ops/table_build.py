@@ -2,14 +2,14 @@
 encode and decode kernels read, without a host read.
 
 Counterpart of ``data_compression_tpu/ops/table_build.py``:
-
-  * ``huffman_lengths_device`` is the table-build kernel's wrapper
-    (``ops/kernels/table_build.py``, ``csrc/table_build.cu``);
-  * ``encode_tables_device`` and ``decode_tables_device`` are torch ops
-    on the device, as the JAX functions are ``jnp`` outside Pallas.  They
-    give the layouts of ``huffman.batched.encode_tensors`` /
-    ``dense_rows`` and ``decode_tensors`` / ``decode_rows``, which the
-    port's kernels read (not the TPU's padded Pallas layouts).
+``encode_tables_device`` and ``decode_tables_device`` are torch ops on
+the device, as the JAX functions are ``jnp`` outside Pallas.  They give
+the layouts of ``huffman.batched.encode_tensors`` / ``dense_rows`` and
+``decode_tensors`` / ``decode_rows``, which the port's kernels read (not
+the TPU's padded Pallas layouts).  The code lengths, and with them the
+encode table in the same launch, come from the table-build kernel
+(``ops/kernels/table_build.py``: ``huffman_lengths``, ``build_tables``);
+``encode_tables_device`` is the plain version of that table.
 
 Only the three arities with kernels (2, 3, 16) have these tables; any
 other arity raises KeyError, as in the JAX package.
@@ -21,9 +21,6 @@ import torch
 
 from data_compression_tpu_torch.config import ARITY_MAX_LEN
 from data_compression_tpu_torch.huffman.batched import BITS_PER_DIGIT, PACKED_LEN_SHIFT
-from data_compression_tpu_torch.ops.kernels.table_build import (  # noqa: F401
-    huffman_lengths as huffman_lengths_device,
-)
 
 
 def _kernel_arity(arity):

@@ -52,7 +52,7 @@ from data_compression_tpu_torch.config import (
 from data_compression_tpu_torch.huffman import batched as hb
 from data_compression_tpu_torch.models.base import EncodeResult
 from data_compression_tpu_torch.models.huffman import HuffmanCodec, capped_lengths
-from data_compression_tpu_torch.ops.histogram import block_histograms
+from data_compression_tpu_torch.ops.kernels.histogram import block_histograms
 from data_compression_tpu_torch.ops.kernels import decode as kdecode
 from data_compression_tpu_torch.ops.kernels import encode as kencode
 from data_compression_tpu_torch.parallel.mesh import Mesh, make_mesh

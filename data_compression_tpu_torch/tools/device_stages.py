@@ -1,0 +1,81 @@
+"""Device time of the device pipeline's table stages on the card.
+
+    python -m data_compression_tpu_torch.tools.device_stages [--mib 64] [--reps 1]
+
+For n = 2, 16 and 3 on the chip smoke run's input (a seeded enwik-like
+corpus plus one deep-code block, 64 KiB blocks): ms per call of the
+per-block histogram on that input and on the same size of one byte value
+(0), of the code lengths and encode table from the histograms
+(``build_tables``), of the code lengths alone (``huffman_lengths``), and
+of ``device_api.compress_blocks_device``.  Each time is the best of 3
+chained trials (``timing.time_chain``, ``*_ms``; where the host's
+enqueue of a call outlasts its kernels, this is host time), and beside
+it the device time per call by torch.profiler
+(``timing.device_ms_or_none``, ``*_device_ms``, null where no profiler
+session held every record).  One JSON line per arity and repetition,
+with the card's name and power limit and the directory of the package
+that was timed (``root``: the first on ``sys.path``).  Needs a CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+import torch
+
+from data_compression_tpu_torch import CodecConfig, device_api, framing
+from data_compression_tpu_torch.ops.kernels import histogram as khist
+from data_compression_tpu_torch.ops.kernels import table_build as ktb
+from data_compression_tpu_torch.tools import timing
+from data_compression_tpu_torch.utils.corpora import deep_code_block, enwik_like
+
+ARITIES = (2, 16, 3)
+SEED = 7
+TRIAL_S = 0.05
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--mib", type=int, default=64, help="input size in MiB")
+    p.add_argument("--reps", type=int, default=1, help="repetitions of every reading")
+    args = p.parse_args(argv)
+    dev = timing.require_cuda("cuda")
+    card = timing.card()
+    size = args.mib << 20
+    data = enwik_like(size - 65536, SEED) + deep_code_block(65536, SEED)
+    blocks, lengths = framing.split_blocks(data, CodecConfig().block_size)
+    dev_blocks = torch.from_numpy(blocks).to(dev)
+    dev_lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+    one = torch.zeros_like(dev_blocks)
+    hists = khist.block_histograms(dev_blocks, dev_lens)
+
+    def ms(fn):
+        return timing.time_chain(fn, iters=12, min_trial_s=TRIAL_S) * 1e3
+
+    for rep in range(args.reps):
+        for n in ARITIES:
+            cfg = CodecConfig(arity=n)
+            steps = {
+                "histogram": lambda: khist.block_histograms(dev_blocks, dev_lens),
+                "histogram_one_value": lambda: khist.block_histograms(one, dev_lens),
+                "tables": lambda: ktb.build_tables(hists, n),
+                "lengths": lambda: ktb.huffman_lengths(hists, n),
+                "compress": lambda: device_api.compress_blocks_device(dev_blocks, dev_lens, cfg,
+                                                                      device=dev),
+            }
+            row = {"root": str(sys.modules["data_compression_tpu_torch"].__path__[0]),
+                   "rep": rep, "arity": n, "mib": args.mib, "card": card}
+            for name, step in steps.items():
+                row[f"{name}_ms"] = ms(step)
+                row[f"{name}_device_ms"] = timing.device_ms_or_none(step)
+            row["compress_gbps"] = size / row["compress_ms"] / 1e6
+            print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -25,7 +25,9 @@ from data_compression_tpu_torch.ops.kernels import compact as kcmp
 from data_compression_tpu_torch.ops.kernels import copy as kcopy
 from data_compression_tpu_torch.ops.kernels import decode as kdec
 from data_compression_tpu_torch.ops.kernels import encode as kenc
-from data_compression_tpu_torch.ops.histogram import block_histograms
+from data_compression_tpu_torch.ops.kernels import _build
+from data_compression_tpu_torch.ops.kernels import histogram as khist
+from data_compression_tpu_torch.ops.kernels.histogram import block_histograms
 from data_compression_tpu_torch.ops.kernels import microbench as kmb
 from data_compression_tpu_torch.ops.kernels import table_build as ktb
 from data_compression_tpu_torch.parallel import compress_sharded, decompress_sharded, make_mesh
@@ -38,6 +40,7 @@ from data_compression_tpu_torch.utils.corpora import (
     enwik_like,
     printable_like,
 )
+from torch_cases import hist_blocks
 
 pytestmark = pytest.mark.cuda
 ARITIES = [2, 16, 3]
@@ -674,6 +677,62 @@ def test_table_build_kernel_matches_plain_and_native(cuda, n):
     assert torch.equal(got32, got[torch.from_numpy(small).to(cuda)])
 
 
+@pytest.mark.parametrize("n", ARITIES)
+def test_build_tables_kernel_matches_plain_and_native(cuda, n):
+    """Lengths and the encode table in one launch, on rows built in 32 and
+    in 64 bits (the huge-count, Fibonacci and geometric rows)."""
+    hists = _table_hists()
+    assert (hists.sum(1) >= 1 << 22).sum() >= 2
+    before = ktb.build_tables.launches
+    lengths, dense = ktb.build_tables(torch.from_numpy(hists).to(cuda), n)
+    assert ktb.build_tables.launches == before + 1
+    want_lengths, want_dense = ktb.build_tables_ref(torch.from_numpy(hists), n)
+    assert np.array_equal(lengths.cpu().numpy(), hb.capped_lengths_batch(hists, n))
+    assert torch.equal(lengths.cpu(), want_lengths)
+    assert dense.dtype == torch.int32 and torch.equal(dense.cpu(), want_dense)
+    tb = hb.codes_batch(want_lengths.numpy(), n)
+    assert np.array_equal(dense.cpu().numpy(), hb.dense_rows(tb).reshape(len(hists), -1))
+    with pytest.raises(KeyError):
+        ktb.build_tables(torch.from_numpy(hists).to(cuda), 10)
+
+
+@pytest.mark.parametrize("source", ["histogram.cu", "table_build.cu"])
+def test_kernels_use_no_stack_and_no_spill(cuda, source):
+    usage = _build.ptxas_usage(source)
+    assert usage
+    for fn, u in usage.items():
+        assert (u["stack"], u["spill_stores"], u["spill_loads"]) == (0, 0, 0), (fn, u)
+
+
+def _hist_views(blocks, dev):
+    """The blocks on ``dev`` as given, as a row view at an odd offset of
+    a flat buffer, and as rows of a wider tensor (row stride S + 5)."""
+    B, S = blocks.shape
+    flat = torch.zeros(B * S + 1, dtype=torch.uint8, device=dev)
+    flat[1:] = torch.from_numpy(blocks.reshape(-1)).to(dev)
+    wide = torch.zeros((B, S + 5), dtype=torch.uint8, device=dev)
+    wide[:, 3:3 + S] = torch.from_numpy(blocks).to(dev)
+    return {"contiguous": torch.from_numpy(blocks).to(dev), "odd offset": flat[1:].view(B, S),
+            "row stride": wide[:, 3:3 + S]}
+
+
+@pytest.mark.parametrize("B", [1, 7, 256, 1024])
+@pytest.mark.parametrize("S,kind", [(65536, "edges"), (4104, "edges"), (65536, "full")])
+def test_histogram_kernel_matches_plain_version(cuda, B, S, kind):
+    blocks, lengths = hist_blocks(kind, B, S, B + S)
+    want = np.stack([np.bincount(blocks[i, :lengths[i]], minlength=256) for i in range(B)])
+    lens = torch.from_numpy(lengths).to(cuda)
+    for name, view in _hist_views(blocks, cuda).items():
+        before = block_histograms.launches
+        got = block_histograms(view, lens)
+        assert block_histograms.launches == before + 1
+        assert got.dtype == torch.int64 and got.shape == (B, 256)
+        assert torch.equal(got, khist.block_histograms_ref(view, lens)), name
+        assert np.array_equal(got.cpu().numpy(), want), name
+    if B == 1 and S >= 2 * khist.MIN_SLICE:  # a row cut into slices, added up atomically
+        assert khist.slices_for(B, S, torch.cuda.get_device_properties(cuda).multi_processor_count) > 1
+
+
 def test_histograms_make_no_host_read(cuda):
     blocks, lengths = framing.split_blocks(_data(), 65536)
     dev_blocks = torch.from_numpy(blocks).to(cuda)
@@ -682,24 +741,26 @@ def test_histograms_make_no_host_read(cuda):
     torch.cuda.set_sync_debug_mode("error")
     try:
         hists = block_histograms(dev_blocks, dev_lens)
+        sliced = block_histograms(dev_blocks[:2], dev_lens[:2])  # several CTAs per row
     finally:
         torch.cuda.set_sync_debug_mode("default")
     want = np.stack([np.bincount(blocks[i, :lengths[i]], minlength=256)
                      for i in range(len(lengths))])
     assert np.array_equal(hists.cpu().numpy(), want)
+    assert np.array_equal(sliced.cpu().numpy(), want[:2])
 
 
 @pytest.mark.parametrize("n", ARITIES)
 def test_device_pipeline_makes_no_host_read(cuda, n):
     """``compress_blocks_device`` under ``set_sync_debug_mode("error")``;
     its frame is ``compress``'s and ``decode_blocks_device`` gives the
-    input back; each kernel of the path launched once."""
+    input back; each of its four kernels launched once."""
     data = _data()
     cfg = pt.CodecConfig(arity=n)
     blocks, lengths = framing.split_blocks(data, cfg.block_size)
     dev_blocks = torch.from_numpy(blocks).to(cuda)
     dev_lens = torch.from_numpy(lengths.astype(np.int32)).to(cuda)
-    wrappers = (ktb.huffman_lengths, kenc.encode_blocks, kcmp.compact_blocks)
+    wrappers = (block_histograms, ktb.build_tables, kenc.encode_blocks, kcmp.compact_blocks)
     before = [w.launches for w in wrappers]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -707,7 +768,7 @@ def test_device_pipeline_makes_no_host_read(cuda, n):
         dc = device_api.compress_blocks_device(dev_blocks, dev_lens, cfg)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1]
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1, 1]
     assert device_api.to_frame(dc, dev_blocks, cfg) == pt.compress(data, cfg, device=cuda)
     out = device_api.decode_blocks_device(*device_api.chunk_inputs(dc), dc.table_rows, n,
                                           cfg.chunk_syms)

@@ -78,6 +78,31 @@ def test_table_build_caps_and_edges():
     assert ktb.huffman_lengths(torch.zeros((0, 256), dtype=torch.int64), 2).shape == (0, 256)
 
 
+@pytest.mark.parametrize("rows", ["suite", "deep_code"])
+@pytest.mark.parametrize("arity", ARITIES)
+def test_build_tables_plain_matches_jax(arity, rows):
+    """``build_tables`` on the CPU (its plain version) against the JAX
+    ``huffman_lengths_device`` and its ``jnp`` encode tables, on the
+    histogram suite and with the deep-code block's histogram in the last
+    row (15-digit codes at n = 2).  Exact integers."""
+    hists = _suite()
+    if rows == "deep_code":
+        deep = np.frombuffer(deep_code_block(65536, 3), np.uint8)
+        hists[-1] = np.bincount(deep, minlength=256)
+    before = ktb.build_tables.launches
+    lengths, dense = ktb.build_tables(torch.from_numpy(hists), arity)
+    assert ktb.build_tables.launches == before  # the plain version counts no launch
+    jlengths = jtbd.huffman_lengths_device(jnp.asarray(hists.astype(np.int32)), arity)
+    assert np.array_equal(lengths.numpy(), np.asarray(jlengths))
+    jdense, _ = jtbd.encode_tables_device(jlengths, arity)
+    assert np.array_equal(dense.numpy(), np.asarray(jdense).reshape(len(hists), -1))
+    assert np.array_equal(lengths.numpy(), hb.capped_lengths_batch(hists, arity))
+    if rows == "deep_code" and arity == 2:
+        assert int(lengths[-1].max()) == ARITY_MAX_LEN[2]
+    with pytest.raises(KeyError):
+        ktb.build_tables(torch.from_numpy(hists), 10)
+
+
 @pytest.mark.parametrize("arity", ARITIES)
 def test_device_tables_match_host_and_jax(arity):
     """With a complete tree at the length cap in the last row."""

@@ -30,8 +30,9 @@ from data_compression_tpu_torch import config as pconfig
 from data_compression_tpu_torch.config import CodecConfig as PConfig
 from data_compression_tpu_torch.huffman.canonical import lengths_to_codes as p_lengths_to_codes
 from data_compression_tpu_torch.huffman.tree import huffman_lengths as p_huffman_lengths
-from data_compression_tpu_torch.ops.histogram import block_histograms
+from data_compression_tpu_torch.ops.kernels.histogram import block_histograms
 from data_compression_tpu_torch.utils.corpora import deep_code_block, enwik_like
+from torch_cases import hist_blocks
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -280,22 +281,42 @@ def test_from_arrays_and_to_device(kind):
         phb.TableBatch.from_arrays({"arity": 2})
 
 
-@pytest.mark.parametrize("kind", ["enwik", "single", "empty_row"])
+@pytest.mark.parametrize("kind", ["enwik", "single", "empty_row", "zero_and_255", "edge_lengths",
+                                  "s4104", "odd_offset"])
 def test_block_histograms_match(kind):
-    """The port's bincount histogram equals the JAX package's one-hot
-    matmul (run on the CPU) and numpy, with padding dropped."""
+    """The port's histogram (on the CPU its plain version) equals the JAX
+    package's one-hot matmul (run on the CPU) and numpy, with padding
+    dropped: text, one byte value, random bytes, all-0 and all-255 rows,
+    lengths 0, 1, S-1 and S, S = 4104 (no multiple of 16), and a row view
+    at an odd offset of a flat buffer."""
     from data_compression_tpu.ops.histogram import block_histograms as j_hist
 
     rng = np.random.default_rng(3)
     B, S = 3, 4096
+    lengths = np.array([S, 1234, 0], np.int64)
     if kind == "enwik":
         blocks = np.frombuffer(enwik_like(B * S, 9), np.uint8).reshape(B, S).copy()
     elif kind == "single":
         blocks = np.full((B, S), 200, np.uint8)
-    else:
+    elif kind == "empty_row":
         blocks = rng.integers(0, 256, (B, S), dtype=np.uint8)
-    lengths = np.array([S, 1234, 0], np.int64)
-    got = block_histograms(torch.from_numpy(blocks), torch.from_numpy(lengths)).numpy()
+    elif kind == "zero_and_255":
+        blocks = np.stack([np.zeros(S, np.uint8), np.full(S, 255, np.uint8),
+                           np.zeros(S, np.uint8)])
+        lengths = np.array([S, S, 17], np.int64)
+    else:
+        if kind == "s4104":
+            S = 4104
+        B = 5
+        lengths = np.array([0, 1, S - 1, S, 777], np.int64)
+        blocks = hist_blocks("edges", B, S, 4)[0]
+    view = torch.from_numpy(blocks)
+    if kind == "odd_offset":
+        flat = torch.zeros(B * S + 1, dtype=torch.uint8)
+        flat[1:] = view.reshape(-1)
+        view = flat[1:].view(B, S)
+        assert view.data_ptr() % 2 == 1
+    got = block_histograms(view, torch.from_numpy(lengths)).numpy()
     want = np.stack([np.bincount(blocks[i, : lengths[i]], minlength=256)
                      for i in range(B)])
     np.testing.assert_array_equal(got, want)
