@@ -11,8 +11,9 @@ script exits non-zero without a result line):
   1. print the card (``nvidia-smi`` name and power limit);
   2. build the CUDA kernels from ``data_compression_tpu_torch/csrc``,
      and print ``nvcc -Xptxas -v``'s registers, stack and spill bytes of
-     the encode, compaction, histogram and table-build kernels
-     (``_build.ptxas_usage``), requiring 0 stack and 0 spill; build the native C runtime
+     the encode, compaction, histogram, table-build, decode-table and
+     lookup kernels (``_build.ptxas_usage``), requiring 0 stack and 0
+     spill; build the native C runtime
      (``data_compression_tpu_torch/native/libdctpu.c``, by ``cc``) and
      print its build seconds and whether it runs with OpenMP;
   3. at each Huffman arity with kernels (2, 16, 3), run each kernel
@@ -48,7 +49,9 @@ script exits non-zero without a result line):
      the JAX package, and decode back;
   7. the profiling tools: the copy kernel against ``clone()`` on the
      64 MiB input and each lookup-variant kernel against its plain
-     version at B = 128 (byte equality); at each arity the rows-encode
+     version at B = 128 (byte equality), timed against both the HBM
+     bound and the reachable floor (the cold time of ``copy_`` and of the
+     copy kernel on the same 8 MiB); at each arity the rows-encode
      stages 1-2 and decode stages 1-3 observables against their
      definitions from the plain full versions (exact); then
      ``tools.ablate`` at 64 MiB per arity and ``tools.microbench``,
@@ -77,11 +80,15 @@ script exits non-zero without a result line):
      cuts into slices on the card), byte for byte, all timed; then the device-resident pipeline at n = 2, 16
      and 3 on the 64 MiB input: the table-build kernel's code lengths and
      encode table (``build_tables``, one launch) must equal its plain
-     version's and the native builder's; ``compress_blocks_device`` runs
-     under ``torch.cuda.set_sync_debug_mode("error")`` (no host read)
-     and its frame must equal phase 4's; ``decode_blocks_device`` must
-     give back the input; device GB/s of each direction (best of 3
-     chains, CUDA events) are printed beside the time of each stage.
+     version's and the native builder's; ``compress_blocks_device`` and
+     ``decode_blocks_device`` run under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host read either
+     way), the frame must equal phase 4's and the decode must give back
+     the input; the decode-table kernel (``decode_tables``) must equal its
+     plain version and the host's ``decode_tensors``; device GB/s of each
+     direction (best of 3 chains, CUDA events) are printed beside the
+     time of each stage and of the decompress as it ran before the
+     decode-table kernel (torch-op tables, the checked decode).
 
 Every compress path runs the histogram kernel: its launches must be > 0
 in phases 4, 5, 9 (the streamed compress child) and 10.
@@ -94,20 +101,23 @@ the plain version, ms per call, plain ms per call, the bound: the
 bytes the call must move at 3.35 TB/s (the table build's: its
 histograms in, its code lengths and encode table out; the histogram's:
 the valid bytes and lengths in, the counts out; the "replaces" of
-these two names the JAX function, which reaches no Pallas kernel), and
+these two names the JAX function, which reaches no Pallas kernel, as
+does the decode-table kernel's: its rows in, its tables out), and
 library ms, the time of one PyTorch call computing the same function,
 or null; the histogram has one entry (arity null) whose launches sum
 phases 4, 5, 9 and 10, whose library ms is its ``index_add_`` plain
 version's, ``one_value_ms`` / ``one_value_plain_ms`` on the
 one-value input, and ``batch_*`` on the first 256 blocks
 (``batch_slices`` slices a row); the table build's ``lengths_only_ms`` is the same
-kernel writing lengths alone (``huffman_lengths``); the histogram and
-the table build have ``device_ms`` (their chain times include the
-wrapper's enqueue, which can outlast the kernel); the compaction
-entries have ``device_ms``, the copy kernel's ``device_ms`` and
-``library_device_ms``: device time per call by torch.profiler,
-``tools.timing.device_ms``, null where no profiler session held every
-device record).  A time per call is the best of 3 trials
+kernel writing lengths alone (``huffman_lengths``); the histogram, the
+table build and the decode tables have ``device_ms`` (their chain times
+include the wrapper's enqueue, which can outlast the kernel; the decode
+tables' ``plain_device_ms`` too); the compaction entries have
+``device_ms``, the copy kernel's ``device_ms`` and
+``library_device_ms``: device time per call of back-to-back calls held
+behind a spin kernel, ``tools.timing.device_ms``; the lookup entries
+have ``floor_ms`` / ``floor_copy_kernel_ms`` (the reachable floor) and
+``warm_ms`` (device ms with the input warm in L2)).  A time per call is the best of 3 trials
 of back-to-back calls, each at least 0.05 s
 (``tools.timing.time_chain``), the lookup variants' the median of
 single launches with the input cold in L2 (``tools.timing.cold_ms``).
@@ -164,9 +174,12 @@ KERNELS = [
 # pipeline; the profiling tools' own kernels are in tool_kernels()
 SLICE_KERNELS = ("histogram", "huffman_encode", "compact", "huffman_decode")
 SHARDED_KERNELS = ("histogram", "huffman_encode_rows", "huffman_decode")
-DEVICE_KERNELS = ("histogram", "table_build", "huffman_encode", "compact", "huffman_decode")
+DEVICE_KERNELS = ("histogram", "table_build", "huffman_encode", "compact", "decode_tables",
+                  "huffman_decode")
 TABLE_BUILD = ("table_build", "data_compression_tpu_torch/csrc/table_build.cu",
                "data_compression_tpu/ops/table_build.py:230")
+DECODE_TABLES = ("decode_tables", "data_compression_tpu_torch/csrc/decode_tables.cu",
+                 "data_compression_tpu/ops/table_build.py:320")
 HISTOGRAM = ("histogram", "data_compression_tpu_torch/csrc/histogram.cu",
              "data_compression_tpu/ops/histogram.py:23")
 STREAM_COPIES = 16  # phase 9: copies of the 64 MiB input in the streamed file
@@ -249,11 +262,6 @@ def timed(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
-
-
-def fmt_ms(ms) -> str:
-    """A device reading for the log: ms, or "not measured" (None)."""
-    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound_ms(nbytes: int) -> float:
@@ -384,7 +392,7 @@ def kernel_phase(n: int, data: bytes, mods: dict, dev) -> dict:
     results["compact"] = dict(
         max_abs_err=err,
         ms=chain_ms(launch),
-        device_ms=timing.device_ms_or_none(launch),
+        device_ms=timing.device_ms(launch),
         plain_ms=chain_ms(lambda: cmp_.compact_blocks_ref(rows, bb), 1),
         bound_ms=bound_ms(2 * total + nbytes_of(bb)),
         bound_by="bytes",
@@ -439,7 +447,7 @@ def kernel_phase(n: int, data: bytes, mods: dict, dev) -> dict:
         log(f"kernel {name} n={n}: max_abs_err {r['max_abs_err']} "
             f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms"
             + ("" if r["library_ms"] is None else f" library {r['library_ms']:.4f} ms")
-            + ("" if "device_ms" not in r else f"; device {fmt_ms(r['device_ms'])}"))
+            + ("" if "device_ms" not in r else f"; device {r['device_ms']:.4f} ms"))
     return results
 
 
@@ -467,13 +475,17 @@ def tool_kernel_phase(data: bytes, dev) -> dict:
         plain_ms=chain_ms(lambda: kcopy.copy_blocks_ref(x)),
         bound_ms=bound_ms(2 * x.numel()), bound_by="bytes",
         library_ms=chain_ms(lambda: dst.copy_(x)),
-        device_ms=timing.device_ms_or_none(lambda: kcopy.copy_blocks(x)),
-        library_device_ms=timing.device_ms_or_none(lambda: dst.copy_(x)),
+        device_ms=timing.device_ms(lambda: kcopy.copy_blocks(x)),
+        library_device_ms=timing.device_ms(lambda: dst.copy_(x)),
     )
     del x, y, dst, everywhere
 
     s, tables = microbench.make_inputs(microbench.B, dev)
     everywhere = torch.ones_like(s, dtype=torch.bool)
+    floor = microbench.floors(dev, COLD_REPS)
+    log(f"lookups: reachable floor of one cold 8 MiB launch: copy_ "
+        f"{floor['floor_copy_ms']:.4f} ms, copy kernel {floor['floor_copy_kernel_ms']:.4f} ms "
+        f"(HBM bound {bound_ms(2 * s.numel()):.4f} ms)")
     for name in kmb.VARIANTS:
         t = tables[name]
         got = kmb.lookup_variant(name, s, t)
@@ -485,13 +497,18 @@ def tool_kernel_phase(data: bytes, dev) -> dict:
             plain_ms=timing.cold_ms(lambda: kmb.lookup_variant_ref(name, s, t), COLD_REPS, dev),
             bound_ms=bound_ms(2 * s.numel() + microbench.table_bytes(t)), bound_by="bytes",
             library_ms=None if lib is None else timing.cold_ms(lib, COLD_REPS, dev),
+            floor_ms=floor["floor_copy_ms"], floor_copy_kernel_ms=floor["floor_copy_kernel_ms"],
+            warm_ms=timing.device_ms(lambda: kmb.lookup_variant(name, s, t)),
         )
     for name, r in results.items():
         log(f"kernel {name}: max_abs_err {r['max_abs_err']} kernel {r['ms']:.4f} ms "
             f"plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms"
             + ("" if r["library_ms"] is None else f" library {r['library_ms']:.4f} ms")
-            + ("" if "device_ms" not in r else f"; device {fmt_ms(r['device_ms'])}, "
-               f"library device {fmt_ms(r['library_device_ms'])}"))
+            + ("" if "device_ms" not in r else f"; device {r['device_ms']:.4f} ms, "
+               f"library device {r['library_device_ms']:.4f} ms")
+            + ("" if "floor_ms" not in r else f"; reachable floor {r['floor_ms']:.4f} ms "
+               f"({r['ms'] / r['floor_ms']:.3f}x), warm in L2 "
+               f"{r['warm_ms']:.4f} ms"))
     return results
 
 
@@ -814,7 +831,7 @@ def histogram_phase(data: bytes, dev, card: str) -> dict:
     entry = dict(
         max_abs_err=max(err, one_err, batch_err),
         ms=chain_ms(lambda: khist.block_histograms(dev_blocks, dev_lens)),
-        device_ms=timing.device_ms_or_none(lambda: khist.block_histograms(dev_blocks, dev_lens)),
+        device_ms=timing.device_ms(lambda: khist.block_histograms(dev_blocks, dev_lens)),
         plain_ms=plain_ms,
         bound_ms=bound_ms(int(lengths.sum()) + nbytes_of(dev_lens, got)), bound_by="bytes",
         library_ms=plain_ms,  # the plain version is one index_add_ (and its index math)
@@ -829,7 +846,7 @@ def histogram_phase(data: bytes, dev, card: str) -> dict:
     log(f"kernel histogram: 64 MiB text and 64 MiB of one byte value equal the plain version, "
         f"and so do their first {batch} blocks ({slices} slices a row) "
         f"(max_abs_err {entry['max_abs_err']}); kernel {entry['ms']:.4f} ms (device "
-        f"{fmt_ms(entry['device_ms'])}), one value "
+        f"{entry['device_ms']:.4f} ms), one value "
         f"{entry['one_value_ms']:.4f} ms; plain (index_add_) {entry['plain_ms']:.4f} ms, one "
         f"value {entry['one_value_plain_ms']:.4f} ms; bound {entry['bound_ms']:.4f} ms; "
         f"{batch} blocks: kernel {entry['batch_ms']:.4f} ms, one value "
@@ -840,7 +857,8 @@ def histogram_phase(data: bytes, dev, card: str) -> dict:
 
 def device_phase(data: bytes, blobs: dict, dev, card: str, count_launches) -> tuple:
     """The device-resident pipeline at each arity; -> ({arity: launches of
-    its kernels}, {arity: the table-build kernel's kernels-line entry})."""
+    its kernels}, {arity: the table-build kernel's kernels-line entry},
+    {arity: the decode-table kernel's})."""
     import numpy as np
     import torch
 
@@ -859,7 +877,7 @@ def device_phase(data: bytes, blobs: dict, dev, card: str, count_launches) -> tu
     valid = torch.arange(blocks.shape[1], device=dev)[None, :] < dev_lens[:, None]
     hists = block_histograms(dev_blocks, dev_lens)
     host_hists = hists.cpu().numpy()
-    launches, entries = {}, {}
+    launches, entries, dt_entries = {}, {}, {}
     for n in ARITIES:
         cfg = CodecConfig(arity=n)
         C = cfg.chunk_syms
@@ -876,7 +894,7 @@ def device_phase(data: bytes, blobs: dict, dev, card: str, count_launches) -> tu
             max_abs_err=max(max_abs_err(lengths_k, lengths_r, torch.ones_like(lengths_k).bool()),
                             max_abs_err(dense_k, dense_r, torch.ones_like(dense_k).bool())),
             ms=chain_ms(lambda: ktb.build_tables(hists, n)),
-            device_ms=timing.device_ms_or_none(lambda: ktb.build_tables(hists, n)),
+            device_ms=timing.device_ms(lambda: ktb.build_tables(hists, n)),
             plain_ms=chain_ms(lambda: ktb.build_tables_ref(hists, n), 1),
             bound_ms=bound_ms(nbytes_of(hists, lengths_k, dense_k)), bound_by="bytes",
             library_ms=None,
@@ -887,18 +905,38 @@ def device_phase(data: bytes, blobs: dict, dev, card: str, count_launches) -> tu
             torch.cuda.set_sync_debug_mode("error")
             try:
                 dc = device_api.compress_blocks_device(dev_blocks, dev_lens, cfg, device=dev)
+                inputs = device_api.chunk_inputs(dc)
+                out = device_api.decode_blocks_device(*inputs, dc.table_rows, n, C, device=dev)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-            return dc, device_api.decode_blocks_device(*device_api.chunk_inputs(dc),
-                                                       dc.table_rows, n, C, device=dev)
+            return dc, inputs, out
 
-        (dc, out), launches[n] = count_launches(DEVICE_KERNELS, run)
+        (dc, inputs, out), launches[n] = count_launches(DEVICE_KERNELS, run)
         if device_api.to_frame(dc, blocks, cfg) != blobs[n]:
             raise AssertionError(f"device pipeline n={n}: frame differs from compress's")
         if not torch.equal(out.view(dev_blocks.shape)[valid], dev_blocks[valid]):
             raise AssertionError(f"device pipeline n={n}: decode did not give back the input")
-        inputs = device_api.chunk_inputs(dc)
-        lim, bmf, syms = tbd.decode_tables_device(dc.table_rows, n)
+        table_rows = dc.table_rows
+        tables_k = ktb.decode_tables(table_rows, n)
+        tables_r = tbd.decode_tables_device(table_rows, n)
+        host = hb.decode_tensors(hb.codes_batch(table_rows.cpu().numpy().astype(np.int64), n),
+                                 "cpu").values()
+        if not all(torch.equal(k.cpu(), h) for k, h in zip(tables_k, host)):
+            raise AssertionError(f"decode tables n={n}: differ from the host builder's")
+
+        def plain_tables():
+            return tbd.decode_tables_device(table_rows, n)
+
+        dt_entries[n] = dict(
+            max_abs_err=max(max_abs_err(k, r, torch.ones_like(k).bool())
+                            for k, r in zip(tables_k, tables_r)),
+            ms=chain_ms(lambda: ktb.decode_tables(table_rows, n)),
+            device_ms=timing.device_ms(lambda: ktb.decode_tables(table_rows, n)),
+            plain_ms=chain_ms(plain_tables), plain_device_ms=timing.device_ms(plain_tables),
+            bound_ms=bound_ms(nbytes_of(table_rows, *tables_k)), bound_by="bytes",
+            library_ms=None,
+        )
+        lim, bmf, syms = tables_k
         rows, digits, bb = kencode.encode_blocks(dev_blocks, dev_lens, dense_k, C, n)
         total = int(bb.long().sum())
         stage = {
@@ -908,30 +946,45 @@ def device_phase(data: bytes, blobs: dict, dev, card: str, count_launches) -> tu
                                                                     C, n)),
             "compaction kernel, out_cap B*S": chain_ms(
                 lambda: device_api._compact_into(rows, bb, dev_blocks.numel())),
-            "decode tables (torch ops)": chain_ms(lambda: tbd.decode_tables_device(dc.table_rows,
-                                                                                   n)),
-            "decode kernel": chain_ms(kdecode.decode_launcher(*inputs, lim, bmf, syms, C, n)),
+            "decode tables kernel": dt_entries[n]["ms"],
+            "decode tables (torch ops, plain)": dt_entries[n]["plain_ms"],
+            "decode kernel": chain_ms(kdecode.decode_launcher(*inputs, lim, bmf, syms, C, n,
+                                                              check=False)),
+            "decode kernel with its input check (one host read)": chain_ms(
+                lambda: kdecode.decode_chunks(*inputs, lim, bmf, syms, C, n)),
         }
         del rows, digits, bb
+
+        def decompress():
+            return device_api.decode_blocks_device(*inputs, table_rows, n, C, device=dev)
+
         comp = chain_ms(lambda: device_api.compress_blocks_device(dev_blocks, dev_lens, cfg,
                                                                   device=dev))
-        dec = chain_ms(lambda: device_api.decode_blocks_device(*inputs, dc.table_rows, n, C,
-                                                               device=dev))
-        log(f"device pipeline n={n}: no host read in compress (sync debug mode error), frame == "
-            f"compress's, decode exact; launches {launches[n]}; payload {total} bytes; compress "
-            f"{comp:.4f} ms = {len(data) / comp / 1e6:.2f} GB/s, decompress {dec:.4f} ms = "
-            f"{len(data) / dec / 1e6:.2f} GB/s (device, best of 3 chains, CUDA events; the "
-            "decompress includes its input check's host read); stages ms: "
+        dec = chain_ms(decompress)
+        dec_device = timing.device_ms(decompress)  # raises if the decompress reads back
+        before = chain_ms(lambda: kdecode.decode_chunks(*inputs, *plain_tables(), C, n))
+        log(f"device pipeline n={n}: no host read in compress or decompress (sync debug mode "
+            f"error), frame == compress's, decode exact; launches {launches[n]}; payload {total} "
+            f"bytes; compress {comp:.4f} ms = {len(data) / comp / 1e6:.2f} GB/s, decompress "
+            f"{dec:.4f} ms = {len(data) / dec / 1e6:.2f} GB/s (best of 3 chains, CUDA events), "
+            f"device {dec_device:.4f} ms; the decompress as before the decode-table kernel "
+            f"(torch-op tables, checked decode with one host read) {before:.4f} ms = "
+            f"{len(data) / before / 1e6:.2f} GB/s; stages ms: "
             + ", ".join(f"{k} {v:.4f}" for k, v in stage.items()) + f"; card {card}")
+        d = dt_entries[n]
+        log(f"kernel decode_tables n={n}: == plain == host decode_tensors (max_abs_err "
+            f"{d['max_abs_err']}); kernel {d['ms']:.4f} ms (device {d['device_ms']:.4f} ms), "
+            f"plain (torch ops) {d['plain_ms']:.4f} ms (device {d['plain_device_ms']:.4f} ms), "
+            f"bound {d['bound_ms']:.4f} ms")
         e = entries[n]
         log(f"kernel table_build n={n}: lengths == native == plain, encode table == native == "
             f"plain (max_abs_err {e['max_abs_err']}); kernel {e['ms']:.4f} ms (device "
-            f"{fmt_ms(e['device_ms'])}; lengths only "
+            f"{e['device_ms']:.4f} ms; lengths only "
             f"{e['lengths_only_ms']:.4f} ms) plain {e['plain_ms']:.4f} ms bound "
             f"{e['bound_ms']:.4f} ms")
-        del dc, out, inputs
+        del dc, out, inputs, tables_k, tables_r
         torch.cuda.empty_cache()
-    return launches, entries
+    return launches, entries, dt_entries
 
 
 def main() -> int:
@@ -970,7 +1023,8 @@ def main() -> int:
     _build.lib()
     log(f"kernel build: {time.perf_counter() - t0:.3f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
-    for source in ("huffman_encode.cu", "compact.cu", "histogram.cu", "table_build.cu"):
+    for source in ("huffman_encode.cu", "compact.cu", "histogram.cu", "table_build.cu",
+                   "decode_tables.cu", "microbench.cu"):
         usage = _build.ptxas_usage(source)
         for fn, u in sorted(usage.items()):
             log(f"ptxas {source} {fn}: {u}")
@@ -995,6 +1049,8 @@ def main() -> int:
     wrappers = {name: getattr(mods[m], w) for name, m, w, *_ in KERNELS}
     wrappers["table_build"] = importlib.import_module(
         "data_compression_tpu_torch.ops.kernels.table_build").build_tables
+    wrappers["decode_tables"] = importlib.import_module(
+        "data_compression_tpu_torch.ops.kernels.table_build").decode_tables
     wrappers["histogram"] = importlib.import_module(
         "data_compression_tpu_torch.ops.kernels.histogram").block_histograms
     wrappers["copy"] = mods["copy"].copy_blocks
@@ -1083,7 +1139,8 @@ def main() -> int:
 
     # -- 10. the device-resident pipeline
     hist_result = histogram_phase(data, dev, card)
-    device_launches, table_results = device_phase(data, blobs, dev, card, count_launches)
+    device_launches, table_results, dt_results = device_phase(data, blobs, dev, card,
+                                                              count_launches)
 
     log(f"card: {card}")
     print(json.dumps({"kernels": [
@@ -1104,6 +1161,11 @@ def main() -> int:
         dict(name=TABLE_BUILD[0], arity=n, route="cuda", source=TABLE_BUILD[1],
              replaces=TABLE_BUILD[2], launches=device_launches[n]["table_build"],
              **table_results[n])
+        for n in ARITIES
+    ] + [
+        dict(name=DECODE_TABLES[0], arity=n, route="cuda", source=DECODE_TABLES[1],
+             replaces=DECODE_TABLES[2], launches=device_launches[n]["decode_tables"],
+             **dt_results[n])
         for n in ARITIES
     ] + [
         dict(name=name, arity=None, route="cuda", source=src, replaces=rep,

@@ -23,6 +23,12 @@
 // chunk_off[k + 1].  Clamping the rank to 8 bits keeps a corrupt stream
 // inside the table (the caller's CRC then fails).
 //
+// Safe on any offsets, with no check on the host: a CTA takes the chunks
+// [blk_start[b], blk_start[b + 1]) clamped into [0, K] (K chunks), and
+// chunk k the bytes [chunk_off[k], chunk_off[k + 1]) clamped into flat's
+// size (an offset past flat gives an empty or shortened chunk), so no read
+// leaves flat, the offsets or the CTA's own table row.
+//
 // What bounded the first version (its stage ablation, 64 MiB, one H100): issue slots,
 // not bytes.  Each symbol ran a dependent chain of L - 1 shared-memory
 // limit compares (about 120 issue slots per symbol at n = 2; at n = 3 also
@@ -358,7 +364,8 @@ huffman_decode_kernel(const uint8_t* __restrict__ flat,
                       const int32_t* __restrict__ limit,
                       const int32_t* __restrict__ bmf,
                       const int32_t* __restrict__ symbols,
-                      uint8_t* __restrict__ out, int C) {
+                      uint8_t* __restrict__ out, int C, int64_t flat_bytes,
+                      int64_t chunks) {
   __shared__ Tables<N> t;
   // stage 4: each warp's 32 rows x kSeg symbols, rows kSegWords words apart
   __shared__ uint32_t s_stage[kStages == 4 ? kWarps * 32 * kSegWords : 1];
@@ -370,17 +377,18 @@ huffman_decode_kernel(const uint8_t* __restrict__ flat,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   uint32_t* stage = s_stage + (kStages == 4 ? warp * 32 * kSegWords : 0);
-  const int64_t k_end = blk_start[b + 1];
+  const int64_t k_begin = min(max(blk_start[b], int64_t{0}), chunks);
+  const int64_t k_end = min(max(blk_start[b + 1], k_begin), chunks);
   // a warp takes 32 consecutive chunks; every lane runs every iteration
-  for (int64_t kw = blk_start[b] + warp * 32; kw < k_end; kw += kThreads) {
+  for (int64_t kw = k_begin + warp * 32; kw < k_end; kw += kThreads) {
     const int64_t k = kw + lane;
     const uint8_t* p = flat;
     int nbytes = 0, cnt = 0;
     if (k < k_end) {
-      const int64_t off = chunk_off[k];
+      const int64_t off = min(max(chunk_off[k], int64_t{0}), flat_bytes);
+      const int64_t end = min(max(chunk_off[k + 1], off), flat_bytes);
       p = flat + off;
-      const int64_t nb = chunk_off[k + 1] - off;
-      nbytes = static_cast<int>(nb < (1 << 30) ? nb : (1 << 30));  // far more than a chunk reads
+      nbytes = static_cast<int>(min(end - off, int64_t{1} << 30));  // far more than a chunk reads
       cnt = max(0, min(C, chunk_cnt[k]));
     }
     const int wmax = __reduce_max_sync(kFull, cnt);
@@ -426,27 +434,30 @@ huffman_decode_kernel(const uint8_t* __restrict__ flat,
   }
 }
 
+struct Args {
+  const void *flat, *chunk_off, *chunk_cnt, *blk_start, *limit, *bmf, *symbols;
+  void* out;
+  int B, C;
+  int64_t flat_bytes, chunks;
+};
+
 template <int N, int kStages>
-void launch(const void* flat, const void* chunk_off, const void* chunk_cnt,
-            const void* blk_start, const void* limit, const void* bmf,
-            const void* symbols, void* out, int B, int C, cudaStream_t stream) {
-  huffman_decode_kernel<N, kStages><<<B, kThreads, 0, stream>>>(
-      static_cast<const uint8_t*>(flat), static_cast<const int64_t*>(chunk_off),
-      static_cast<const int32_t*>(chunk_cnt), static_cast<const int64_t*>(blk_start),
-      static_cast<const int32_t*>(limit), static_cast<const int32_t*>(bmf),
-      static_cast<const int32_t*>(symbols), static_cast<uint8_t*>(out), C);
+void launch(const Args& a, cudaStream_t stream) {
+  huffman_decode_kernel<N, kStages><<<a.B, kThreads, 0, stream>>>(
+      static_cast<const uint8_t*>(a.flat), static_cast<const int64_t*>(a.chunk_off),
+      static_cast<const int32_t*>(a.chunk_cnt), static_cast<const int64_t*>(a.blk_start),
+      static_cast<const int32_t*>(a.limit), static_cast<const int32_t*>(a.bmf),
+      static_cast<const int32_t*>(a.symbols), static_cast<uint8_t*>(a.out), a.C, a.flat_bytes,
+      a.chunks);
 }
 
 template <int N>
-cudaError_t launch_stages(const void* flat, const void* chunk_off, const void* chunk_cnt,
-                          const void* blk_start, const void* limit, const void* bmf,
-                          const void* symbols, void* out, int B, int C, int stages,
-                          cudaStream_t s) {
+cudaError_t launch_stages(const Args& a, int stages, cudaStream_t s) {
   switch (stages) {
-    case 1: launch<N, 1>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, s); break;
-    case 2: launch<N, 2>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, s); break;
-    case 3: launch<N, 3>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, s); break;
-    case 4: launch<N, 4>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, s); break;
+    case 1: launch<N, 1>(a, s); break;
+    case 2: launch<N, 2>(a, s); break;
+    case 3: launch<N, 3>(a, s); break;
+    case 4: launch<N, 4>(a, s); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaSuccess;
@@ -454,18 +465,22 @@ cudaError_t launch_stages(const void* flat, const void* chunk_off, const void* c
 
 }  // namespace
 
+// flat holds flat_bytes bytes; chunk_off has chunks + 1 entries, blk_start B + 1.
 extern "C" int dct_huffman_decode(const void* flat, const void* chunk_off,
                                   const void* chunk_cnt, const void* blk_start,
                                   const void* limit, const void* bmf,
                                   const void* symbols, void* out, int B, int C,
-                                  int arity, int stages, void* stream) {
+                                  int arity, int stages, int64_t flat_bytes, int64_t chunks,
+                                  void* stream) {
   if (B > 0) {
     const auto s = static_cast<cudaStream_t>(stream);
+    const Args a{flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out,
+                 B,    C,         flat_bytes, chunks};
     cudaError_t rc;
     switch (arity) {
-      case 2: rc = launch_stages<2>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, stages, s); break;
-      case 3: rc = launch_stages<3>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, stages, s); break;
-      case 16: rc = launch_stages<16>(flat, chunk_off, chunk_cnt, blk_start, limit, bmf, symbols, out, B, C, stages, s); break;
+      case 2: rc = launch_stages<2>(a, stages, s); break;
+      case 3: rc = launch_stages<3>(a, stages, s); break;
+      case 16: rc = launch_stages<16>(a, stages, s); break;
       default: rc = cudaErrorInvalidValue;
     }
     if (rc != cudaSuccess) return static_cast<int>(rc);

@@ -12,8 +12,11 @@ them but the payload total and the digit counts' wire bytes, and
 returns a handle whose tensors stay on the device.  Only
 ``DeviceCompressed.download`` reads back: the payload total, and so
 whether the output fitted its capacity.
-``decode_blocks_device`` derives the decode tables from the wire length
-rows on the device and runs the decode kernel.
+``decode_blocks_device`` builds the decode tables from the wire length
+rows (``ops/kernels/table_build.py`` ``decode_tables``, one launch) and
+runs the decode kernel, with no host read either: as the JAX function,
+it does not check its offsets, and the decode kernel clamps every chunk
+into ``flat`` itself.
 
 Per-block tables at n = 2, 3 and 16 only (the arities with kernels):
 shared tables raise ValueError, other arities KeyError, as the JAX
@@ -39,8 +42,7 @@ from data_compression_tpu_torch.ops.kernels import compact as kcompact
 from data_compression_tpu_torch.ops.kernels import decode as kdecode
 from data_compression_tpu_torch.ops.kernels import encode as kencode
 from data_compression_tpu_torch.ops.kernels.histogram import block_histograms
-from data_compression_tpu_torch.ops.kernels.table_build import build_tables
-from data_compression_tpu_torch.ops.table_build import decode_tables_device
+from data_compression_tpu_torch.ops.kernels.table_build import build_tables, decode_tables
 
 
 @dataclasses.dataclass
@@ -171,14 +173,16 @@ def chunk_inputs(dc: DeviceCompressed):
 def decode_blocks_device(flat, chunk_off, chunk_cnt, chunk_blk, table_rows, arity=2,
                          chunk_syms=512, device="cuda") -> torch.Tensor:
     """Decode chunk streams on ``device`` (the inputs of
-    ``ops/kernels/decode.py``, with the [B, 256] wire length rows in place
-    of the decode tables, which are built from them on the device).
+    ``ops/kernels/decode.py``, with the [B, 256] uint8 wire length rows in
+    place of the decode tables, which are built from them on the device).
     -> [K, C] uint8 symbols on the device; bytes past chunk_cnt[k] are
-    undefined."""
+    undefined.  Two launches and no host read: the offsets are not
+    checked (``decode_chunks`` checks them), a chunk past ``flat`` decodes
+    from its bytes inside it."""
     device = torch.device(device)
     for t in (flat, chunk_off, chunk_cnt, chunk_blk, table_rows):
         if not _on(t, device):
             raise ValueError(f"decode inputs must lie on {device}, got {t.device}")
-    limit, bmf, symbols = decode_tables_device(table_rows, arity)
-    return kdecode.decode_chunks(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
-                                 chunk_syms, arity)
+    limit, bmf, symbols = decode_tables(table_rows, arity)
+    return kdecode.decode_launcher(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
+                                   chunk_syms, arity, check=False)()

@@ -34,7 +34,7 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("huffman_encode.cu", "compact.cu", "huffman_decode.cu", "copy.cu", "microbench.cu",
-           "table_build.cu", "histogram.cu")
+           "table_build.cu", "histogram.cu", "decode_tables.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -48,11 +48,12 @@ SIGNATURES = {
     "dct_huffman_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _I, _P],
     "dct_huffman_encode_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dct_compact": [_P, _P, _P, _I, _I64, _I64, _P],
-    "dct_huffman_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dct_huffman_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I64, _I64, _P],
     "dct_copy": [_P, _P, _I64, _P],
     "dct_lookup": [_I, _P, _P, _P, _I, _I, _P],
     "dct_table_build": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dct_histogram": [_P, _I64, _P, _P, _I, _I64, _I, _P],
+    "dct_decode_tables": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

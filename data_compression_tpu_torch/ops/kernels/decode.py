@@ -7,7 +7,10 @@ Replaces ``data_compression_tpu/ops/pallas/decode_kernel.py``
       chunk is digit j % D of its byte j // D, little-endian, D =
       ARITY_DIGITS_PER_BYTE[n]);
   chunk_off [K+1] int64 — chunk k is flat[chunk_off[k]:chunk_off[k+1]]
-      (nondecreasing, within flat; checked on CUDA tensors);
+      (nondecreasing, within flat; checked on CUDA tensors, with one host
+      read, unless the caller asks for no check: the kernel clamps every
+      chunk into flat and every CTA's chunk range into [0, K] itself, so
+      no offsets make it read outside its inputs);
   chunk_cnt [K] int32 — symbols in chunk k (at most C);
   chunk_blk [K] int32 — table row of chunk k, nondecreasing;
   limit, bmf [B, L+1] int32 (L = ARITY_MAX_LEN[n]: 15 at n = 2 and 3, 7
@@ -182,11 +185,15 @@ def decode_lut_ref(limit, bmf, symbols, arity):
 
 
 def decode_launcher(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
-                    chunk_syms, arity=2):
+                    chunk_syms, arity=2, check=True):
     """Check the inputs once and return ``launch(stages=4)``, which
     decodes them on their device: the CUDA kernel for CUDA tensors (no
     further checks and no host sync per call, for timing loops), the
-    plain version for CPU tensors.  ``launch`` -> [K, C] uint8."""
+    plain version for CPU tensors.  ``launch`` -> [K, C] uint8.  On CUDA
+    tensors the offsets and table rows are checked with one host read
+    (ValueError when a chunk leaves flat or the rows are out of order);
+    ``check=False`` skips that read, and chunks out of flat then decode
+    from their bytes inside it (the kernel's clamps)."""
     if flat.device.type == "cpu":
         def launch_ref(stages=4):
             return decode_chunks_ref(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf,
@@ -198,12 +205,13 @@ def decode_launcher(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
     dev = flat.device
     blk_start = None
     if K and B:
-        # the kernel reads flat[chunk_off[k]:chunk_off[k+1]] unchecked
-        bad = (chunk_off[0] < 0) | (chunk_off[-1] > flat.numel()) | (chunk_off.diff() < 0).any()
-        bad |= (chunk_blk[0] < 0) | (chunk_blk[-1] >= B) | (chunk_blk.diff() < 0).any()
-        if bool(bad):
-            raise ValueError("chunk_off must be nondecreasing within flat and "
-                             "chunk_blk nondecreasing within [0, B)")
+        if check:
+            bad = ((chunk_off[0] < 0) | (chunk_off[-1] > flat.numel())
+                   | (chunk_off.diff() < 0).any())
+            bad |= (chunk_blk[0] < 0) | (chunk_blk[-1] >= B) | (chunk_blk.diff() < 0).any()
+            if bool(bad):
+                raise ValueError("chunk_off must be nondecreasing within flat and "
+                                 "chunk_blk nondecreasing within [0, B)")
         # chunks of table row b are [blk_start[b], blk_start[b+1])
         blk_start = torch.searchsorted(
             chunk_blk, torch.arange(B + 1, dtype=torch.int32, device=dev)
@@ -217,7 +225,7 @@ def decode_launcher(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
                 rc = _build.lib().dct_huffman_decode(
                     flat.data_ptr(), chunk_off.data_ptr(), chunk_cnt.data_ptr(),
                     blk_start.data_ptr(), limit.data_ptr(), bmf.data_ptr(),
-                    symbols.data_ptr(), out.data_ptr(), B, C, arity, stages,
+                    symbols.data_ptr(), out.data_ptr(), B, C, arity, stages, flat.numel(), K,
                     _build.stream_of(flat),
                 )
             _build.check(rc, "huffman_decode")

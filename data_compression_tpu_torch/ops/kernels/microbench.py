@@ -32,7 +32,7 @@ import torch
 from data_compression_tpu_torch.ops.kernels import _build
 
 LANES = 128
-_SLICE_BYTES = 8192  # bytes of one block per CTA (csrc/microbench.cu)
+_BLOCK_ALIGN = 8192  # a block (C x 128 bytes) is a whole number of these (csrc/microbench.cu)
 _I32 = (torch.int32, 2)
 # variant (in kernel-index order): its table's dtype and row count, or
 # None; the line of its body in the JAX package's tools/microbench.py
@@ -59,8 +59,8 @@ def _check(name, s, table):
     if s.dtype != torch.uint8 or s.dim() != 3 or s.shape[2] != LANES:
         raise ValueError(f"s must be [B, C, {LANES}] uint8, got {s.dtype} {tuple(s.shape)}")
     B, C, _ = s.shape
-    if C <= 0 or (C * LANES) % _SLICE_BYTES:
-        raise ValueError(f"C = {C} must be a positive multiple of {_SLICE_BYTES // LANES}")
+    if C <= 0 or (C * LANES) % _BLOCK_ALIGN:
+        raise ValueError(f"C = {C} must be a positive multiple of {_BLOCK_ALIGN // LANES}")
     spec = TABLES[name]
     if spec is None:
         if table is not None:

@@ -25,6 +25,11 @@ The plain versions: ``huffman_lengths_ref``, a torch transcription of
 the JAX build, B blocks wide per merge step, in int64 (a block's counts
 may sum past 2**31 there too); ``build_tables_ref``, that followed by
 ``encode_tables_device``.
+
+``decode_tables`` (kernel: ``csrc/decode_tables.cu``) replaces the JAX
+``decode_tables_device`` (``jnp`` ops, no Pallas kernel): [B, 256] uint8
+wire length rows -> the decode kernel's tables in one launch, bit-identical
+to its plain version ``ops.table_build.decode_tables_device``.
 """
 
 from __future__ import annotations
@@ -34,7 +39,11 @@ import torch
 from data_compression_tpu_torch.config import ARITY_MAX_LEN
 from data_compression_tpu_torch.huffman.batched import BITS_PER_DIGIT, PACKED_LEN_SHIFT
 from data_compression_tpu_torch.ops.kernels import _build
-from data_compression_tpu_torch.ops.table_build import _kernel_arity, encode_tables_device
+from data_compression_tpu_torch.ops.table_build import (
+    _kernel_arity,
+    decode_tables_device,
+    encode_tables_device,
+)
 
 S = 256  # alphabet
 MAXD = 64  # >= arity - 2 dummy leaves
@@ -183,3 +192,33 @@ def build_tables(hists, arity):
 
 
 build_tables.launches = 0
+
+
+def decode_tables(rows, arity):
+    """The decode kernel's tables from [B, 256] uint8 wire length rows on
+    the tensors' device: one launch for CUDA tensors, the plain version
+    (``ops.table_build.decode_tables_device``) for CPU tensors.  ->
+    (limit [B, L+1], bmf [B, L+1], symbols [B, 256]) int32, L =
+    ``ARITY_MAX_LEN[arity]``; arities without kernels raise KeyError."""
+    _kernel_arity(arity)
+    if rows.dtype != torch.uint8 or rows.dim() != 2 or rows.shape[1] != S:
+        raise ValueError(f"rows must be [B, {S}] uint8, got {rows.dtype} {tuple(rows.shape)}")
+    if rows.device.type == "cpu":
+        return decode_tables_device(rows, arity)
+    rows = rows.contiguous()
+    _build.require_cuda(rows)
+    B, L, dev = rows.shape[0], ARITY_MAX_LEN[arity], rows.device
+    limit = torch.empty((B, L + 1), dtype=torch.int32, device=dev)
+    bmf = torch.empty((B, L + 1), dtype=torch.int32, device=dev)
+    symbols = torch.empty((B, S), dtype=torch.int32, device=dev)
+    if B:
+        with torch.cuda.device(dev):
+            rc = _build.lib().dct_decode_tables(rows.data_ptr(), limit.data_ptr(),
+                                                bmf.data_ptr(), symbols.data_ptr(), B, arity,
+                                                L, _build.stream_of(rows))
+        _build.check(rc, "decode_tables")
+        decode_tables.launches += 1
+    return limit, bmf, symbols
+
+
+decode_tables.launches = 0

@@ -9,7 +9,9 @@ the layouts of ``huffman.batched.encode_tensors`` / ``dense_rows`` and
 the TPU's padded Pallas layouts).  The code lengths, and with them the
 encode table in the same launch, come from the table-build kernel
 (``ops/kernels/table_build.py``: ``huffman_lengths``, ``build_tables``);
-``encode_tables_device`` is the plain version of that table.
+``encode_tables_device`` is the plain version of that table, and
+``decode_tables_device`` of the decode-table kernel (``decode_tables``
+there), which builds the decode tables on CUDA in one launch.
 
 Only the three arities with kernels (2, 3, 16) have these tables; any
 other arity raises KeyError, as in the JAX package.

@@ -1,4 +1,4 @@
-"""Device time of the device pipeline's table stages on the card.
+"""Device time of the device pipeline's stages on the card.
 
     python -m data_compression_tpu_torch.tools.device_stages [--mib 64] [--reps 1]
 
@@ -6,16 +6,18 @@ For n = 2, 16 and 3 on the chip smoke run's input (a seeded enwik-like
 corpus plus one deep-code block, 64 KiB blocks): ms per call of the
 per-block histogram on that input and on the same size of one byte value
 (0), of the code lengths and encode table from the histograms
-(``build_tables``), of the code lengths alone (``huffman_lengths``), and
-of ``device_api.compress_blocks_device``.  Each time is the best of 3
+(``build_tables``), of the code lengths alone (``huffman_lengths``), of
+``device_api.compress_blocks_device``, of the decode tables from the
+compressed table rows by their kernel (``decode_tables``) and by their
+plain torch ops (``decode_tables_device``), and of
+``device_api.decode_blocks_device``.  Each time is the best of 3
 chained trials (``timing.time_chain``, ``*_ms``; where the host's
 enqueue of a call outlasts its kernels, this is host time), and beside
-it the device time per call by torch.profiler
-(``timing.device_ms_or_none``, ``*_device_ms``, null where no profiler
-session held every record).  One JSON line per arity and repetition,
-with the card's name and power limit and the directory of the package
-that was timed (``root``: the first on ``sys.path``).  Needs a CUDA
-device.
+it the device time per call of back-to-back calls held behind a spin
+kernel (``timing.device_ms``, ``*_device_ms``).  One JSON line per arity
+and repetition, with the card's name and power limit and the directory
+of the package that was timed (``root``: the first on ``sys.path``).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from data_compression_tpu_torch import CodecConfig, device_api, framing
 from data_compression_tpu_torch.ops.kernels import histogram as khist
+from data_compression_tpu_torch.ops import table_build as tbd
 from data_compression_tpu_torch.ops.kernels import table_build as ktb
 from data_compression_tpu_torch.tools import timing
 from data_compression_tpu_torch.utils.corpora import deep_code_block, enwik_like
@@ -59,6 +62,8 @@ def main(argv=None) -> int:
     for rep in range(args.reps):
         for n in ARITIES:
             cfg = CodecConfig(arity=n)
+            dc = device_api.compress_blocks_device(dev_blocks, dev_lens, cfg, device=dev)
+            inputs = device_api.chunk_inputs(dc)
             steps = {
                 "histogram": lambda: khist.block_histograms(dev_blocks, dev_lens),
                 "histogram_one_value": lambda: khist.block_histograms(one, dev_lens),
@@ -66,13 +71,18 @@ def main(argv=None) -> int:
                 "lengths": lambda: ktb.huffman_lengths(hists, n),
                 "compress": lambda: device_api.compress_blocks_device(dev_blocks, dev_lens, cfg,
                                                                       device=dev),
+                "decode_tables": lambda: ktb.decode_tables(dc.table_rows, n),
+                "decode_tables_plain": lambda: tbd.decode_tables_device(dc.table_rows, n),
+                "decompress": lambda: device_api.decode_blocks_device(
+                    *inputs, dc.table_rows, n, cfg.chunk_syms, device=dev),
             }
             row = {"root": str(sys.modules["data_compression_tpu_torch"].__path__[0]),
                    "rep": rep, "arity": n, "mib": args.mib, "card": card}
             for name, step in steps.items():
                 row[f"{name}_ms"] = ms(step)
-                row[f"{name}_device_ms"] = timing.device_ms_or_none(step)
+                row[f"{name}_device_ms"] = timing.device_ms(step)
             row["compress_gbps"] = size / row["compress_ms"] / 1e6
+            row["decompress_gbps"] = size / row["decompress_ms"] / 1e6
             print(json.dumps(row), flush=True)
     return 0
 

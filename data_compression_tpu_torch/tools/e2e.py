@@ -10,7 +10,7 @@ each
   * under cProfile once (``profiled_ms``, and the ``TOP`` functions by
     own time: [name, own ms, cumulative ms, calls]; the table build is
     ``capped_lengths_batch``'s cumulative ms, ``tables_ms``),
-  * under torch.profiler: the device ms per call (``timing.device_ms``,
+  * under torch.profiler: the device ms per call (``timing.profiled_device_ms``,
     kernels and copies; null where not measured) and the device's busy
     share of ``wall_ms``.
 Prints one JSON line per (arity, op), after a header line with
@@ -92,7 +92,7 @@ def run(cfg: CodecConfig, data: bytes, device) -> list:
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - t0) * 1e3)
         prof_ms, tables_ms, top_rows = _profile(fn)
-        dev_ms = timing.device_ms_or_none(fn, iters=3)
+        dev_ms = timing.profiled_device_ms_or_none(fn, iters=3)
         rows.append({"arity": cfg.arity, "op": op, "mb": len(data) / MIB,
                      "wall_ms": min(wall), "gbps": len(data) / (min(wall) * 1e-3) / 1e9,
                      "profiled_ms": prof_ms, "tables_ms": tables_ms, "device_ms": dev_ms,

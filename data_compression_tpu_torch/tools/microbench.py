@@ -13,12 +13,17 @@ uint8 symbol tensor (B = 128, C = 512: 8 MiB) and the same tables
 back would read from L2.  Each launch is timed instead between its own
 CUDA events after a 256 MiB scratch buffer is rewritten outside them
 (``timing.cold_ms``): ``ms`` is the median of 30 launches with the
-input cold in L2, ``gbps`` the symbol bytes over it.  Prints a
-header line, then one JSON line per variant, ``{"variant", "ms",
-"gbps"}``, with ``library_ms`` for every variant but ``gather256_u8_x3``
-and ``stage1_like`` (``library_call``: ``Tensor.copy_`` for
-``passthrough`` and ``widen_i32``, else ``torch.gather`` on the flattened
-table narrowed to uint8, writing the same 8 MiB uint8 result).
+input cold in L2, ``gbps`` the symbol bytes over it; ``warm_ms`` is the
+device time per launch of launches back to back with the input warm in
+L2 (``timing.device_ms``), where the lookups' own cost shows.  Prints a
+header line, a line of the reachable floor (``floor_copy_ms``: the cold
+time of ``Tensor.copy_`` of the same 8 MiB, ``floor_copy_kernel_ms``:
+the copy kernel's), then one JSON line per variant,
+``{"variant", "ms", "gbps", "warm_ms"}``, with
+``library_ms`` for every variant but ``gather256_u8_x3`` and
+``stage1_like`` (``library_call``: ``Tensor.copy_`` for ``passthrough``
+and ``widen_i32``, else ``torch.gather`` on the flattened table narrowed
+to uint8, writing the same 8 MiB uint8 result).
 
 ``--smoke`` runs every variant at B = 2 on ``--device`` (default cuda,
 as every entry point; ``--device cpu`` runs the plain versions) against
@@ -35,6 +40,7 @@ import sys
 import numpy as np
 import torch
 
+from data_compression_tpu_torch.ops.kernels import copy as kcopy
 from data_compression_tpu_torch.ops.kernels import microbench as kmb
 from data_compression_tpu_torch.tools import timing
 
@@ -87,17 +93,33 @@ def table_bytes(table) -> int:
     return 0 if table is None else table.numel() * table.element_size()
 
 
+def floors(device="cuda", reps: int = 30) -> dict:
+    """The reachable floor of one cold launch moving the lookups' bytes:
+    median ms of ``Tensor.copy_`` and of the copy kernel on the
+    microbenchmark's 8 MiB symbol tensor (``timing.cold_ms``)."""
+    dev = timing.require_cuda(device)
+    s, _ = make_inputs(B, dev)
+    dst = torch.empty_like(s)
+    return {"floor_copy_ms": timing.cold_ms(lambda: dst.copy_(s), reps, dev),
+            "floor_copy_kernel_ms": timing.cold_ms(lambda: kcopy.copy_blocks(s), reps, dev)}
+
+
 def run(device="cuda", reps: int = 30):
-    """Time every variant, each the median of ``reps`` launches; -> one
-    dict per variant."""
+    """Time every variant, each the median of ``reps`` cold launches;
+    -> one dict per variant."""
     dev = timing.require_cuda(device)
     s, tables = make_inputs(B, dev)
     nbytes = s.numel()
     results = []
     for name in kmb.VARIANTS:
         table = tables[name]
-        ms = timing.cold_ms(lambda: kmb.lookup_variant(name, s, table), reps, dev)
-        r = {"variant": name, "ms": ms, "gbps": nbytes / (ms * 1e-3) / 1e9}
+
+        def call():
+            return kmb.lookup_variant(name, s, table)
+
+        ms = timing.cold_ms(call, reps, dev)
+        r = {"variant": name, "ms": ms, "gbps": nbytes / (ms * 1e-3) / 1e9,
+             "warm_ms": timing.device_ms(call)}
         lib = library_call(name, s, table)
         if lib is not None:
             r["library_ms"] = timing.cold_ms(lib, reps, dev)
@@ -134,6 +156,7 @@ def main(argv=None) -> int:
     print(json.dumps({"card": timing.card(), "device": torch.cuda.get_device_name(dev),
                       "B": B, "C": C, "lanes": LANES,
                       "timing": "median of 30 per-launch CUDA events, input cold in L2"}))
+    print(json.dumps(floors(dev)))
     for r in run(dev):
         print(json.dumps(r))
     return 0

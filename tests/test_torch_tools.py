@@ -216,6 +216,21 @@ def test_variants_name_their_tpu_bodies():
         "def k6", "def k7"]
 
 
+@pytest.mark.parametrize("C", [64, 128, 512, 576])
+def test_lookup_wrappers_take_any_whole_block_width(C):
+    """A block of any multiple of 8 KiB (C a multiple of 64), whether or
+    not a 4-word slice divides it: the CPU result is the plain version's;
+    C off that grid raises."""
+    s = torch.randint(0, 256, (2, C, kmb.LANES), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(C))
+    _, tables = microbench.make_inputs(2, "cpu")
+    for name in kmb.VARIANTS:
+        assert torch.equal(kmb.lookup_variant(name, s, tables[name]),
+                           kmb.lookup_variant_ref(name, s, tables[name]))
+        with pytest.raises(ValueError, match="multiple of 64"):
+            kmb.lookup_variant(name, s[:, : C - 32].contiguous(), tables[name])
+
+
 def test_cpu_wrappers_are_plain_versions_and_check_inputs():
     s, tables = microbench.make_inputs(B, "cpu")
     before = {n: w.launches for n, w in kmb.WRAPPERS.items()}
@@ -446,9 +461,9 @@ def _fake_profiler(monkeypatch, sessions):
 
 
 def test_device_ms_takes_only_whole_sessions(monkeypatch):
-    """One counting session (run again while empty) fixes the device
-    records per call; a timed session that holds fewer than iters times
-    that many is run again."""
+    """``profiled_device_ms`` (whole API calls): one counting session (run
+    again while empty) fixes the device records per call; a timed session
+    that holds fewer than iters times that many is run again."""
     iters = 5
     handed = _fake_profiler(monkeypatch, iter([0, 2, 2 * iters - 1, 2 * iters, 99]))
     monkeypatch.setattr(timing, "WINDOW_PAD_S", 0.25)
@@ -456,7 +471,7 @@ def test_device_ms_takes_only_whole_sessions(monkeypatch):
     pads = []
     monkeypatch.setattr(timing.time, "sleep", pads.append)
     calls = []
-    ms = timing.device_ms(lambda: calls.append(1), iters=iters)
+    ms = timing.profiled_device_ms(lambda: calls.append(1), iters=iters)
     assert ms == pytest.approx(2 * iters * 10.0 / iters * 1e-3)
     assert handed == [0, 2, 2 * iters - 1, 2 * iters]
     assert len(calls) == 1 + 1 + 1 + 2 * iters  # warm-up, two counting, two timed sessions
@@ -470,12 +485,94 @@ def test_device_ms_raises_when_no_session_is_whole(monkeypatch):
     _fake_profiler(monkeypatch, iter([3] + [3 * iters - 2] * timing.PROFILE_SESSIONS))
     short = ", ".join(["10"] * timing.PROFILE_SESSIONS)
     with pytest.raises(RuntimeError, match=rf"held \[3\] .*12 were expected.*\[{short}\]"):
-        timing.device_ms(lambda: None, iters=iters)
+        timing.profiled_device_ms(lambda: None, iters=iters)
     _fake_profiler(monkeypatch, iter([0] * timing.PROFILE_SESSIONS))
     with pytest.raises(timing.IncompleteProfile, match="no whole session"):
-        timing.device_ms(lambda: None, iters=iters)
+        timing.profiled_device_ms(lambda: None, iters=iters)
     # readings that check nothing take None (not measured) with a warning
     _fake_profiler(monkeypatch, iter([0] * timing.PROFILE_SESSIONS + [1, iters]))
     with pytest.warns(RuntimeWarning, match="device time not measured"):
-        assert timing.device_ms_or_none(lambda: None, iters=iters) is None
-    assert timing.device_ms_or_none(lambda: None, iters=iters) == pytest.approx(10.0 * 1e-3)
+        assert timing.profiled_device_ms_or_none(lambda: None, iters=iters) is None
+    assert timing.profiled_device_ms_or_none(lambda: None, iters=iters) == pytest.approx(10.0 * 1e-3)
+
+
+def _fake_card(monkeypatch, held, elapsed_ms=2.0):
+    """CUDA events, the spin kernel and the sync debug mode faked: the
+    gate of the k-th gated chain held when ``held[k]`` (its start event
+    not reached when the host has enqueued the end event); every event
+    pair spans ``elapsed_ms``.  -> (spins in cycles, the debug mode at each
+    step call)."""
+    held = iter(held)
+    spins, state = [], {"mode": 0}
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            pass
+
+        def record(self):
+            pass
+
+        def synchronize(self):
+            pass
+
+        def query(self):
+            return not next(held)
+
+        def elapsed_time(self, other):
+            return elapsed_ms
+
+    def set_mode(mode):
+        state["mode"] = {"default": 0, "warn": 1, "error": 2}.get(mode, mode)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "_sleep", spins.append)
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", set_mode)
+    monkeypatch.setattr(torch.cuda, "get_sync_debug_mode", lambda: state["mode"])
+    monkeypatch.setattr(timing, "_cycles_per_ms", None)
+    return spins, state
+
+
+def test_device_ms_times_the_calls_behind_a_gate(monkeypatch):
+    """One spin calibrates the clock (``CALIBRATION_CYCLES`` over the
+    events' 2 ms), then one gated chain of ``iters`` calls, each call in
+    sync debug mode "error", the caller's mode back afterwards."""
+    spins, state = _fake_card(monkeypatch, [True])
+    state["mode"] = 1
+    modes = []
+    iters = 8
+    ms = timing.device_ms(lambda: modes.append(state["mode"]), iters=iters)
+    assert ms == pytest.approx(2.0 / iters)
+    assert modes == [1] * (1 + iters) + [2] * iters  # warm-up, untimed and gated chains
+    assert state["mode"] == 1
+    per_ms = timing.CALIBRATION_CYCLES / 2.0
+    assert spins[0] == timing.CALIBRATION_CYCLES and len(spins) == 2
+    assert spins[1] >= int(timing.GATE_MIN_MS * per_ms)
+
+
+def test_device_ms_lengthens_a_gate_that_did_not_hold(monkeypatch):
+    """A chain whose start event was already reached is run again behind
+    a spin 4x longer; after ``GATE_TRIES`` such chains it raises."""
+    spins, _ = _fake_card(monkeypatch, [False, False, True])
+    assert timing.device_ms(lambda: None, iters=3) == pytest.approx(2.0 / 3)
+    gates = spins[1:]
+    assert len(gates) == 3 and gates[1] == pytest.approx(4 * gates[0], rel=1e-6)
+    assert gates[2] == pytest.approx(16 * gates[0], rel=1e-6)
+    _fake_card(monkeypatch, [False] * timing.GATE_TRIES)
+    with pytest.raises(timing.UngatedChain, match="outlasted every spin"):
+        timing.device_ms(lambda: None, iters=3)
+
+
+def test_device_ms_refuses_a_step_that_reads_back(monkeypatch):
+    """A step that synchronises raises in sync debug mode "error" (as
+    torch does), and the mode is restored."""
+    _, state = _fake_card(monkeypatch, [True])
+
+    def step():
+        if state["mode"] == 2:
+            raise RuntimeError("called a synchronizing CUDA operation")
+
+    with pytest.raises(RuntimeError, match="synchronizing"):
+        timing.device_ms(step, iters=4)
+    assert state["mode"] == 0

@@ -21,3 +21,54 @@ def hist_blocks(kind, B, S, seed):
     lengths = np.array([picks[i % 5] if i % 5 < 4 else int(rng.integers(0, S + 1))
                         for i in range(B)], np.int64)
     return blocks, lengths
+
+
+DECODE_ROW_KINDS = ("real", "complete", "empty", "one_symbol", "random", "never_written")
+
+
+def decode_table_rows(kind, arity, B, seed):
+    """[B, 256] uint8 wire length rows of one decode-table case, or of
+    every case in turn (``kind`` "mixed"): the capped code lengths of
+    text blocks, the last one a deep-code block ("real"); a complete
+    tree at the length cap L ("complete"); no symbol ("empty"); one
+    symbol of length 1 ("one_symbol"); random lengths 0..L, mostly
+    over-full ("random"); and rows the encoder never writes
+    ("never_written"): lengths above L among random ones, every symbol
+    of length 1 (an over-full tree whose sums pass 2**32 at n = 16) and
+    every symbol of length 255."""
+    from data_compression_tpu_torch.config import ARITY_MAX_LEN
+    from data_compression_tpu_torch.huffman import batched as hb
+    from data_compression_tpu_torch.utils.corpora import complete_lengths, deep_code_block
+
+    L = ARITY_MAX_LEN[arity]
+    rng = np.random.default_rng(seed)
+    if kind == "mixed":
+        parts = [decode_table_rows(k, arity, B, seed + i) for i, k in enumerate(DECODE_ROW_KINDS)]
+        return np.stack([parts[i % len(parts)][i] for i in range(B)]) if B else parts[0]
+    if kind == "real":
+        size = 4096
+        text = np.frombuffer(enwik_like(size * max(B - 1, 0), seed)
+                             + deep_code_block(size, seed), np.uint8)
+        blocks = text[-B * size:].reshape(B, size) if B else text[:0].reshape(0, size)
+        hists = np.stack([np.bincount(b, minlength=256) for b in blocks]) if B else np.zeros(
+            (0, 256), np.int64)
+        rows = hb.capped_lengths_batch(hists.astype(np.int64), arity)
+    elif kind == "complete":
+        rows = np.tile(complete_lengths(arity, L, 256 if arity != 3 else 255), (B, 1))
+        for r in rows:
+            rng.shuffle(r)
+    elif kind == "empty":
+        rows = np.zeros((B, 256), np.int64)
+    elif kind == "one_symbol":
+        rows = np.zeros((B, 256), np.int64)
+        rows[np.arange(B), rng.integers(0, 256, B)] = 1
+    elif kind == "random":
+        rows = rng.integers(0, L + 1, (B, 256))
+    elif kind == "never_written":
+        rows = rng.integers(0, L + 1, (B, 256))
+        rows[:, rng.integers(0, 256, 9)] = rng.integers(L + 1, 256, 9)
+        rows[1::3] = 1
+        rows[2::3] = 255
+    else:
+        raise ValueError(f"unknown decode-table case {kind!r}")
+    return np.asarray(rows).astype(np.uint8)
