@@ -11,9 +11,9 @@ script exits non-zero without a result line):
   1. print the card (``nvidia-smi`` name and power limit);
   2. build the CUDA kernels from ``data_compression_tpu_torch/csrc``,
      and print ``nvcc -Xptxas -v``'s registers, stack and spill bytes of
-     the encode, compaction, histogram, table-build, decode-table and
-     lookup kernels (``_build.ptxas_usage``), requiring 0 stack and 0
-     spill; build the native C runtime
+     the encode, compaction, histogram, table-build, decode-table,
+     lookup and serial-lane kernels (``_build.ptxas_usage``), requiring
+     0 stack and 0 spill; build the native C runtime
      (``data_compression_tpu_torch/native/libdctpu.c``, by ``cc``) and
      print its build seconds and whether it runs with OpenMP;
   3. at each Huffman arity with kernels (2, 16, 3), run each kernel
@@ -58,12 +58,25 @@ script exits non-zero without a result line):
      their JSON logged, with the launch count
      of the copy kernel, every lookup variant, the rows-encode and the
      decode kernel > 0;
-  8. the serial codecs (literal, nybble, small_byte, small_byte with the
-     ISPRINT mode, small_nybble) made for ``cuda``: ``compress`` ->
-     ``decompress`` of the 64 MiB input must round-trip exactly; their
-     ratio, compress / decompress GB/s and route (the native runtime's
-     OpenMP batch drivers on the host, or the pass-through) are printed;
-     a frame with one payload byte flipped must raise ValueError;
+  8. the serial codecs' lanes (``csrc/nybble_lanes.cu``,
+     ``csrc/small_lanes.cu``): each of the six lane kernels (encode and
+     decode of nybble, small_byte, small_nybble) against the native
+     batch drivers, rows and totals then the decode, on the whole 64 MiB
+     input, on 64 KiB of one byte value and on 64 KiB of 7-bit random
+     bytes, and against its plain version, byte for byte, on the same
+     blocks and payloads (the plain step loop run on the card once on
+     the 1,024 blocks and the two edge blocks together, and timed); each
+     timed at 64 MiB (chain and device ms) beside its
+     HBM bound and its serial-chain floor (steps of the longest lane x
+     one step's dependent cycles read off the source, at the SM clock a
+     spin kernel measures).  Then each serial codec (literal, nybble,
+     small_byte, small_byte with the ISPRINT mode, small_nybble) made for
+     ``cuda``: ``compress`` -> ``decompress`` of the 64 MiB input must
+     round-trip exactly through the lanes, each lane of its path and the
+     compaction launched, and give the frame made for ``cpu``; ratio and
+     compress / decompress GB/s of the lane route (``cuda``) and of the
+     native route (``cpu``), each line naming its route; a frame with one
+     payload byte flipped must raise ValueError on ``cuda``;
   9. streamed files: a 1 GiB file (16 copies of the 64 MiB input, each
      rotated by a seeded offset) through ``python -m
      data_compression_tpu_torch compress`` / ``decompress`` on cuda in
@@ -117,7 +130,12 @@ tables' ``plain_device_ms`` too); the compaction entries have
 ``library_device_ms``: device time per call of back-to-back calls held
 behind a spin kernel, ``tools.timing.device_ms``; the lookup entries
 have ``floor_ms`` / ``floor_copy_kernel_ms`` (the reachable floor) and
-``warm_ms`` (device ms with the input warm in L2)).  A time per call is the best of 3 trials
+``warm_ms`` (device ms with the input warm in L2); the six lanes' entries
+(arity null, launches summed over phase 8's codec runs, "replaces" the
+JAX lane, which reaches no Pallas kernel) have ``device_ms``, the plain
+version's ms at ``plain_shape``, ``hbm_bound_ms`` and
+``chain_floor_ms`` with its steps, cycles a step and ``sm_mhz``, the
+higher of the two as ``bound_ms``).  A time per call is the best of 3 trials
 of back-to-back calls, each at least 0.05 s
 (``tools.timing.time_chain``), the lookup variants' the median of
 single launches with the input cold in L2 (``tools.timing.cold_ms``).
@@ -512,14 +530,15 @@ def tool_kernel_phase(data: bytes, dev) -> dict:
     return results
 
 
-def rates(data: bytes, cfg, blob: bytes, label: str, card: str, host: str) -> None:
-    """Best of 3 compress / decompress GB/s of ``data`` on cuda."""
+def rates(data: bytes, cfg, blob: bytes, label: str, card: str, host: str,
+          device: str = "cuda") -> None:
+    """Best of 3 compress / decompress GB/s of ``data`` on ``device``."""
     from data_compression_tpu_torch import compress, decompress
 
     best = {}
     for _ in range(3):
-        b, ev_c, wall_c = timed(lambda: compress(data, cfg, device="cuda"))
-        r, ev_d, wall_d = timed(lambda: decompress(b, device="cuda"))
+        b, ev_c, wall_c = timed(lambda: compress(data, cfg, device=device))
+        r, ev_d, wall_d = timed(lambda: decompress(b, device=device))
         if b != blob or r != data:
             raise AssertionError(f"{label} output differs")
         for k, v in (("compress_event", ev_c), ("compress_wall", wall_c),
@@ -564,31 +583,241 @@ def table_phase(data: bytes, dev, host: str) -> None:
             f"{plain_ms:.4f} ms; host {host}")
 
 
+LANES = [
+    # (name, codec, direction, source, JAX lane it replaces (no Pallas kernel))
+    ("nybble_encode", "nybble", "encode", "data_compression_tpu_torch/csrc/nybble_lanes.cu",
+     "data_compression_tpu/ops/scan_codecs.py:47"),
+    ("nybble_decode", "nybble", "decode", "data_compression_tpu_torch/csrc/nybble_lanes.cu",
+     "data_compression_tpu/ops/scan_codecs.py:115"),
+    ("small_byte_encode", "small_byte", "encode", "data_compression_tpu_torch/csrc/small_lanes.cu",
+     "data_compression_tpu/ops/scan_codecs.py:297"),
+    ("small_byte_decode", "small_byte", "decode", "data_compression_tpu_torch/csrc/small_lanes.cu",
+     "data_compression_tpu/ops/scan_codecs.py:191"),
+    ("small_nybble_encode", "small_nybble", "encode",
+     "data_compression_tpu_torch/csrc/small_lanes.cu", "data_compression_tpu/ops/scan_codecs.py:454"),
+    ("small_nybble_decode", "small_nybble", "decode",
+     "data_compression_tpu_torch/csrc/small_lanes.cu", "data_compression_tpu/ops/scan_codecs.py:603"),
+]
+# One step's serial chain, read off the source: (shared-memory loads,
+# dependent integer operations) from one step's state to the next's.
+# nybble encode: the row load, two byte compares, find-first, the
+# move-to-front mask and merge; decode adds the byte's extraction and
+# its splat.  small encode: the prefix slot's gen load, the target key,
+# the 64-bit compares, ballots, the first match across the four
+# quarters and the next index (scheme B: the literal shortcut's test).
+# small decode: the context, the entry load and its fields (scheme B:
+# the last-three-nybbles merge); the span copy's global load, which an
+# in-order thread waits on before its store, is left out of the floor.
+LANE_CHAIN = {"nybble_encode": (1, 12), "nybble_decode": (1, 17),
+              "small_byte_encode": (1, 16), "small_byte_decode": (1, 8),
+              "small_nybble_encode": (1, 19), "small_nybble_decode": (1, 14)}
+SHARED_LOAD_CYCLES = 30  # H100 shared-memory load latency, about 30 cycles (assumed)
+INT_OP_CYCLES = 4  # a dependent integer operation, about 4 cycles (assumed)
+LANE_EDGE_BYTES = 65536  # phase 8: one block of one byte value, one of 7-bit random bytes
 SERIAL = [
-    # (label, config kwargs)
-    ("literal", dict(codec="literal")),
-    ("nybble", dict(codec="nybble")),
-    ("small_byte", dict(codec="small_byte")),
-    ("small_byte isprint_literal", dict(codec="small_byte", isprint_literal=True)),
-    ("small_nybble", dict(codec="small_nybble")),
+    # (label, config kwargs, lanes of its path)
+    ("literal", dict(codec="literal"), ()),
+    ("nybble", dict(codec="nybble"), ("nybble_encode", "nybble_decode")),
+    ("small_byte", dict(codec="small_byte"), ("small_byte_encode", "small_byte_decode")),
+    ("small_byte isprint_literal", dict(codec="small_byte", isprint_literal=True),
+     ("small_byte_encode", "small_byte_decode")),
+    ("small_nybble", dict(codec="small_nybble"), ("small_nybble_encode", "small_nybble_decode")),
 ]
 
 
-def serial_phase(data: bytes, card: str, host: str) -> None:
-    """Each serial codec made for cuda: exact round trip of ``data``,
-    ratio, GB/s and route; one flipped payload byte must raise."""
+def sm_cycles_per_ms() -> float:
+    """The SM clock as a spin of 50M cycles (``torch.cuda._sleep``) reads
+    it on CUDA events: cycles per ms."""
+    import torch
+
+    cycles = 50_000_000
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def lane_check(kind: str, blocks, lengths, dev, label: str) -> tuple:
+    """Encode and decode lane kernels of ``kind`` against the native batch
+    drivers on ``blocks``: payload rows and totals, then the decode of
+    the native payloads; -> (device blocks, lengths, rows, totals, status,
+    (flat payloads, offsets, plens, raw lens, S)), the inputs and outputs
+    held against the plain versions and timed."""
+    import numpy as np
+    import torch
+
+    from data_compression_tpu_torch import native
+    from data_compression_tpu_torch.models.nybble import seven_bit_blocks
+    from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
+
+    dev_blocks = torch.from_numpy(blocks).to(dev)
+    dev_lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+    rows, totals, status = lanes.ENCODERS[kind](dev_blocks, dev_lens)
+    ok = seven_bit_blocks(blocks, lengths) if kind != "small_nybble" else np.ones(len(lengths), bool)
+    st = status.cpu().numpy()
+    if not np.array_equal(st == lanes.OK, ok) or bool((st[~ok] != lanes.INPUT).any()):
+        raise AssertionError(f"{label}: {kind} encode lane status differs from the 7-bit test")
+    idx = np.flatnonzero(ok)
+    want = native.encode_batch(kind, blocks[idx], lengths[idx])
+    rows_h, tot_h = rows.cpu().numpy(), totals.cpu().numpy()
+    for k, i in enumerate(idx):
+        if rows_h[i, : tot_h[i]].tobytes() != want[k]:
+            raise AssertionError(f"{label}: {kind} encode lane differs from native (block {i})")
+    plens = np.array([len(p) for p in want], np.int64)
+    offsets = np.zeros(len(want), np.int64)
+    np.cumsum(plens[:-1], out=offsets[1:])
+    flat = torch.from_numpy(np.frombuffer(b"".join(want), np.uint8).copy()).to(dev)
+    args = (flat, torch.from_numpy(offsets).to(dev), torch.from_numpy(plens.astype(np.int32)).to(dev),
+            torch.from_numpy(lengths[idx].astype(np.int32)).to(dev), blocks.shape[1])
+    out, st = lanes.DECODERS[kind](*args)
+    if bool((st != lanes.OK).any()):
+        raise AssertionError(f"{label}: {kind} decode lane refused a native payload")
+    out_h = out.cpu().numpy()
+    for k, i in enumerate(idx):
+        if out_h[k, : lengths[i]].tobytes() != blocks[i, : lengths[i]].tobytes():
+            raise AssertionError(f"{label}: {kind} decode lane differs from the input (block {i})")
+    log(f"lanes {kind}, {label}: encode rows and totals equal the native batch driver's on "
+        f"{len(idx)} blocks ({len(lengths) - len(idx)} raw), decode gives back every block")
+    return dev_blocks, dev_lens, rows, totals, status, args
+
+
+def lane_against_plain(kind: str, main: tuple, edges: tuple, dev) -> tuple:
+    """The lane kernels' outputs on the main path's blocks and on the two
+    edge blocks (``lane_check``'s tuples) against their plain versions,
+    run on the card once on those blocks together (a lane reads only its
+    own block, and the plain step loop costs the same at B = 1026 as at
+    1024); -> (encode err, decode err, plain encode ms, plain decode ms)."""
+    import torch
+
+    from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
+
+    if kind == "nybble":
+        plain_enc, plain_dec = lanes.nybble_encode_ref, lanes.nybble_decode_ref
+    else:
+        nyb = kind == "small_nybble"
+        plain_enc = lambda b, n: lanes.small_encode_ref(b, n, nyb)  # noqa: E731
+        plain_dec = lambda *a: lanes.small_decode_ref(*a, nyb)  # noqa: E731
+    blocks, lens, rows, totals, status = (torch.cat((m, e)) for m, e in zip(main[:5], edges[:5]))
+    (rows_r, totals_r, status_r), enc_ms, _ = timed(lambda: plain_enc(blocks, lens))
+    if not (torch.equal(totals, totals_r) and torch.equal(status, status_r)):
+        raise AssertionError(f"{kind} encode lane totals or status differ from the plain version's")
+    enc_err = max_abs_err(rows, rows_r, torch.arange(rows.shape[1], device=dev)[None, :]
+                          < totals[:, None].long())
+    (fm, om, pm, rm, S), (fe, oe, pe, re, _) = main[5], edges[5]
+    args = (torch.cat((fm, fe)), torch.cat((om, oe + fm.numel())), torch.cat((pm, pe)),
+            torch.cat((rm, re)), S)
+    (out_r, st_r), dec_ms, _ = timed(lambda: plain_dec(*args))
+    outs = [lanes.DECODERS[kind](*a) for a in (main[5], edges[5])]
+    out, st = torch.cat([o for o, _ in outs]), torch.cat([s for _, s in outs])
+    if not torch.equal(st, st_r):
+        raise AssertionError(f"{kind} decode lane status differs from the plain version's")
+    dec_err = max_abs_err(out, out_r, torch.arange(S, device=dev)[None, :] < args[3][:, None].long())
+    return enc_err, dec_err, enc_ms, dec_ms
+
+
+def lane_phase(data: bytes, dev, card: str) -> dict:
+    """Phase 8a: each lane kernel against the native batch drivers on the
+    whole 64 MiB input, on 64 KiB of one byte value and on 64 KiB of
+    7-bit random bytes, and against its plain version, run on the card on
+    all those blocks (byte for byte, the plain version timed); each timed
+    at 64 MiB with its two bounds; -> {lane: kernels-line entry}."""
+    import numpy as np
+    import torch
+
+    from data_compression_tpu_torch import CodecConfig, framing
+    from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
+    from data_compression_tpu_torch.tools import timing
+
+    blocks, lengths = framing.split_blocks(data, CodecConfig().block_size)
+    rng = np.random.default_rng(SEED)
+    edges = np.stack([np.full(LANE_EDGE_BYTES, ord("a"), np.uint8),
+                      rng.integers(0, 128, LANE_EDGE_BYTES, dtype=np.uint8)])
+    results = {}
+    for kind in ("nybble", "small_byte", "small_nybble"):
+        enc, dec = lanes.ENCODERS[kind], lanes.DECODERS[kind]
+        # the native batch drivers on the edge blocks and at full size
+        edge = lane_check(kind, edges, np.full(2, LANE_EDGE_BYTES, np.int64), dev,
+                          "64 KiB of one value, 7-bit random")
+        main = lane_check(kind, blocks, lengths, dev, "64 MiB")
+        enc_err, dec_err, enc_plain_ms, dec_plain_ms = lane_against_plain(kind, main, edge, dev)
+        plain_shape = f"{len(lengths) + len(edges)} x {blocks.shape[1]}"
+        log(f"lanes {kind}: kernels equal their plain versions on the 64 MiB input and the two "
+            f"edge blocks, {plain_shape} bytes (max abs err {enc_err} / {dec_err}); plain "
+            f"encode {enc_plain_ms:.1f} ms, plain decode {dec_plain_ms:.1f} ms on the card; "
+            f"card {card}")
+        fb, fl, _, totals, _, dargs = main
+        n = lengths.astype(np.int64)
+        tot = totals.cpu().numpy().astype(np.int64)
+        plens = dargs[2].cpu().numpy().astype(np.int64)
+        steps = {"encode": int(n.max()) * (2 if kind == "small_nybble" else 1)
+                 - (1 if kind == "nybble" else 2 if kind == "small_byte" else 3),
+                 "decode": int(n.max()) - 1 if kind == "nybble" else int(plens.max()) - 2}
+        moved = {"encode": int(n.sum()) + nbytes_of(fl) + int(tot.sum()) + 8 * len(n),
+                 "decode": int(plens.sum()) + 16 * len(plens) + int(n[tot > 0].sum())
+                 + 4 * len(plens)}
+        timings = {
+            "encode": (chain_ms(lambda: enc(fb, fl), 2), timing.device_ms(lambda: enc(fb, fl), 4)),
+            "decode": (chain_ms(lambda: dec(*dargs), 2), timing.device_ms(lambda: dec(*dargs), 4)),
+        }
+        clock = sm_cycles_per_ms()
+        for direction, plain_ms, err in (("encode", enc_plain_ms, enc_err),
+                                         ("decode", dec_plain_ms, dec_err)):
+            name = f"{kind}_{direction}"
+            loads, ops = LANE_CHAIN[name]
+            cycles = loads * SHARED_LOAD_CYCLES + ops * INT_OP_CYCLES
+            floor = steps[direction] * cycles / clock
+            hbm = bound_ms(moved[direction])
+            ms, dms = timings[direction]
+            results[name] = dict(
+                max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms, plain_shape=plain_shape,
+                bound_ms=max(floor, hbm), bound_by="operations" if floor >= hbm else "bytes",
+                hbm_bound_ms=hbm, chain_floor_ms=floor, chain_steps=steps[direction],
+                chain_step_cycles=cycles, sm_mhz=clock / 1e3, library_ms=None)
+            log(f"kernel {name}: 64 MiB {ms:.4f} ms (device {dms:.4f} ms); HBM bound "
+                f"{hbm:.4f} ms, serial-chain floor {floor:.4f} ms ({steps[direction]} steps x "
+                f"{cycles} cycles at {clock / 1e3:.0f} MHz), {ms / max(floor, hbm):.2f}x the "
+                f"higher; plain {plain_ms:.1f} ms on {plain_shape}; card {card}")
+        del fb, fl, totals, dargs, main, edge
+        torch.cuda.empty_cache()
+    return results
+
+
+def serial_phase(data: bytes, card: str, host: str, count_launches) -> dict:
+    """Phase 8b: each serial codec made for cuda: exact round trip of
+    ``data`` through its lanes (each lane and the compaction launched),
+    the frame equal to the one made for cpu (the native route); ratio and
+    GB/s of both routes; one flipped payload byte must raise.  -> the
+    launches of each lane, summed over the codecs' runs."""
     from data_compression_tpu_torch import CodecConfig, compress, decompress, framing, native
 
-    for label, kw in SERIAL:
+    launches = {}
+    for label, kw, path in SERIAL:
         cfg = CodecConfig(**kw)
-        blob = compress(data, cfg, device="cuda")
-        if decompress(blob, device="cuda") != data:
+
+        def run():
+            b = compress(data, cfg, device="cuda")
+            return b, decompress(b, device="cuda")
+
+        (blob, back), counts = count_launches(path + (("compact",) if path else ()), run)
+        if back != data:
             raise AssertionError(f"serial {label}: round trip on cuda is not exact")
-        route = ("host, pass-through" if cfg.codec == "literal"
-                 else f"host native, {'OpenMP' if native.openmp else 'serial'}")
-        log(f"serial {label}: {len(data) // MIB} MiB round trip exact, ratio "
-            f"{len(blob) / len(data):.6f}, route {route}")
-        rates(data, cfg, blob, f"serial {label}", card, host)
+        cpu_blob = compress(data, cfg, device="cpu")
+        if blob != cpu_blob:
+            raise AssertionError(f"serial {label}: the cuda frame differs from the cpu frame")
+        for name in path:
+            launches[name] = launches.get(name, 0) + counts[name]
+        route = "host, pass-through" if not path else "lanes (CUDA kernels)"
+        log(f"serial {label}: {len(data) // MIB} MiB round trip exact on cuda, frame == cpu "
+            f"frame, ratio {len(blob) / len(data):.6f}, route {route}, launches {counts}")
+        rates(data, cfg, blob, f"serial {label}, cuda route: {route}", card, host)
+        if path:
+            native_route = f"native, {'OpenMP' if native.openmp else 'serial'} batch drivers"
+            rates(data, cfg, blob, f"serial {label}, cpu route: {native_route}", card, host,
+                  device="cpu")
         f = framing.unpack_frame(blob)
         lo = len(blob) - sum(e.comp_len for e in f.entries)
         corrupt = bytearray(blob)
@@ -599,6 +828,7 @@ def serial_phase(data: bytes, card: str, host: str) -> None:
             log(f"serial {label}: a flipped payload byte raises ValueError ({e})")
         else:
             raise AssertionError(f"serial {label}: a flipped payload byte decoded without error")
+    return launches
 
 
 def sharded_phase(data: bytes, blobs: dict, card: str, count_launches) -> dict:
@@ -1024,7 +1254,7 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.3f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
     for source in ("huffman_encode.cu", "compact.cu", "histogram.cu", "table_build.cu",
-                   "decode_tables.cu", "microbench.cu"):
+                   "decode_tables.cu", "microbench.cu", "nybble_lanes.cu", "small_lanes.cu"):
         usage = _build.ptxas_usage(source)
         for fn, u in sorted(usage.items()):
             log(f"ptxas {source} {fn}: {u}")
@@ -1054,6 +1284,11 @@ def main() -> int:
     wrappers["histogram"] = importlib.import_module(
         "data_compression_tpu_torch.ops.kernels.histogram").block_histograms
     wrappers["copy"] = mods["copy"].copy_blocks
+    from data_compression_tpu_torch.ops.kernels import serial_lanes
+
+    wrappers.update({f"{kind}_{d}": fns[kind] for d, fns in (("encode", serial_lanes.ENCODERS),
+                                                              ("decode", serial_lanes.DECODERS))
+                     for kind in serial_lanes.KINDS})
     wrappers.update({f"lookup_{v}": fn for v, fn in mods["microbench"].WRAPPERS.items()})
 
     def count_launches(path_kernels, run):
@@ -1131,8 +1366,9 @@ def main() -> int:
         log(f"tools.microbench: {json.dumps(r)}")
     log(f"tools launches {tool_launches}; card {card}")
 
-    # -- 8. the serial codecs, made for cuda (they run on the host)
-    serial_phase(data, card, host)
+    # -- 8. the serial codecs' lanes, and the serial codecs made for cuda
+    lane_results = lane_phase(data, dev, card)
+    lane_launches = serial_phase(data, card, host, count_launches)
 
     # -- 9. streamed files through the CLI on cuda
     stream_launches = stream_phase(data, card)
@@ -1171,6 +1407,10 @@ def main() -> int:
         dict(name=name, arity=None, route="cuda", source=src, replaces=rep,
              launches=tool_launches[name], **tool_results[name])
         for name, src, rep in tool_kernels()
+    ] + [
+        dict(name=name, arity=None, route="cuda", source=src, replaces=rep,
+             launches=lane_launches[name], **lane_results[name])
+        for name, _, _, src, rep in LANES
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

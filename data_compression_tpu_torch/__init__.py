@@ -17,10 +17,12 @@ in the native runtime; at arities 2, 3 and 16 on a CUDA device its
 encode, compaction and decode run in the kernels under ``csrc/``, on the
 CPU in their plain PyTorch versions, and every other arity runs the
 pure-Python host path on any device, as in the reference.  The serial
-codecs (``literal``, ``nybble``, ``small_byte``, ``small_nybble``) run
-on the host in the native runtime's OpenMP batch drivers, the JAX
-package's production route, whatever the device; made for ``cuda``
-they raise where no CUDA device is present.
+codecs ``nybble``, ``small_byte`` and ``small_nybble`` run, on a CUDA
+device, in the serial lanes (``ops/scan_codecs.py``, one CUDA thread or
+warp per block, kernels under ``csrc/``), and on the CPU in the native
+runtime's OpenMP batch drivers, the JAX package's production route;
+``literal`` is a host pass-through.  Made for ``cuda``, every codec
+raises where no CUDA device is present.
 """
 
 from data_compression_tpu_torch.api import (

@@ -4,8 +4,10 @@
 Split into blocks -> encode the blocks on ``device`` -> universal
 LITERAL fallback -> frame; and the inverse with per-block CRC checks.
 Every entry point takes the device explicitly; nothing picks one.  The
-serial codecs run on the host whatever the device (``models/base.py``
-``HostCodec``).  The streaming and file drivers hold at most one batch
+serial codecs made for ``cuda`` run in the serial lanes
+(``ops/scan_codecs.py``, CUDA kernels), made for ``cpu`` in the native
+batch drivers; ``literal`` is a host pass-through on either
+(``models/base.py`` ``HostCodec``).  The streaming and file drivers hold at most one batch
 of blocks resident and write one independent frame per batch, as the
 JAX package's do (its CLI's ``compress`` always streams).
 """

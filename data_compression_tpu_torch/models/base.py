@@ -50,16 +50,35 @@ class Codec(abc.ABC):
         """Decode payloads back to raw block bytes."""
 
 
+def _require_card(codec: Codec) -> None:
+    """RuntimeError for a codec made for a CUDA device where there is
+    none, so no call on ``cuda`` quietly runs on a machine without a card."""
+    if codec.device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{codec.name} codec made for {codec.device}, but no CUDA device is available"
+        )
+
+
 class HostCodec(Codec):
-    """A codec whose work runs on the host, in the native runtime or in
-    Python, whatever ``device`` it was made for: the serial codecs, whose
-    production route in the JAX package is its native batch drivers.
-    One made for a CUDA device raises RuntimeError where there is none,
-    so no call on ``cuda`` quietly runs on a machine without a card."""
+    """A codec whose work runs on the host whatever ``device`` it was made
+    for: ``literal``, a pass-through with no work a card could take."""
 
     def __init__(self, config: CodecConfig, device="cuda"):
         super().__init__(config, device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"{self.name} codec made for {self.device}, but no CUDA device is available"
-            )
+        _require_card(self)
+
+
+class LaneCodec(Codec):
+    """A serial codec (``nybble``, ``small_byte``, ``small_nybble``).  On a
+    CUDA device its blocks go through the lanes of ``ops/scan_codecs.py``
+    (one CUDA thread or warp per block); on the CPU through the native
+    runtime's OpenMP batch drivers, the JAX package's production route.
+    Both give the same payloads."""
+
+    def __init__(self, config: CodecConfig, device="cuda"):
+        super().__init__(config, device)
+        _require_card(self)
+
+    @property
+    def on_card(self) -> bool:
+        return self.device.type == "cuda"

@@ -29,12 +29,14 @@ Scope: plaintext bytes must be < 0x80 (the reference asserts the same,
 :910); embedded 0x00 bytes are legal.  Blocks containing bytes >= 0x80
 are passed through as LITERAL blocks.
 
-Routes, as the JAX package's production default: both directions run
-in the native runtime's OpenMP batch drivers (``native``) on the host,
-whatever the codec's device (``HostCodec``); encode takes the Python
-host encoder ``encode_host`` only when ``stats`` are collected
+Routes (``LaneCodec``): made for a CUDA device, both directions run in
+the nybble lanes (``ops/scan_codecs.py``, kernels in
+``csrc/nybble_lanes.cu``, one CUDA thread per block); made for the CPU,
+in the native runtime's OpenMP batch drivers (``native``), the JAX
+package's production default.  On either device encode takes the
+Python host encoder ``encode_host`` when ``stats`` are collected
 (byte-identical payloads).  ``encode_host`` / ``decode_host`` are the
-plain versions the tests hold the native route to.
+plain versions the tests hold both routes to.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ from typing import List, Optional
 import numpy as np
 
 from data_compression_tpu_torch import native
-from data_compression_tpu_torch.models.base import EncodeResult, HostCodec
+from data_compression_tpu_torch.models.base import EncodeResult, LaneCodec
+from data_compression_tpu_torch.ops import scan_codecs
 
 NYBBLES_TYPE = 0xAF  # nybble_compression.c:732
 SEED_ROW = b" etaoins"  # nybble_compression.c:546-562
@@ -170,14 +173,16 @@ def seven_bit_blocks(blocks: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     return ~np.any((blocks >= 0x80) & pos, axis=1)
 
 
-class NybbleCodec(HostCodec):
+class NybbleCodec(LaneCodec):
     name = "nybble"
 
     def encode_blocks(
         self, blocks: np.ndarray, lengths: np.ndarray, stats=None
     ) -> EncodeResult:
-        B = blocks.shape[0]
         lengths = np.asarray(lengths, np.int64)
+        if stats is None and self.on_card:  # the lane returns blocks with bytes >= 0x80 raw
+            return EncodeResult(scan_codecs.nybble_encode_blocks(blocks, lengths, self.device))
+        B = blocks.shape[0]
         # Blocks with bytes >= 0x80 can't ride the 7-bit scheme
         # (nybble_compression.c:910 asserts the same); they take the
         # LITERAL fallback via an incompressible payload.
@@ -203,4 +208,6 @@ class NybbleCodec(HostCodec):
         raw_lens: List[int],
         shared_table: Optional[bytes] = None,
     ) -> List[bytes]:
+        if self.on_card:
+            return scan_codecs.decode_payloads("nybble", payloads, raw_lens, self.device)
         return native.decode_batch("nybble", payloads, raw_lens)

@@ -46,13 +46,17 @@ Decoder behavior matches the reference on every stream the reference's
 own tests exercise (mock-encoder streams never wrap slots or reuse
 chains; verified in tests/test_small.py).
 
-Routes, as the JAX package's production default: scheme A and scheme B
-run in the native runtime's OpenMP batch drivers (``native``) on the
-host, whatever the codec's device (``HostCodec``); encode takes the
-Python host encoders only when ``stats`` are collected (byte-identical
-payloads).  The ISPRINT (0x1f) mode has no native driver and runs the
-host encoder and decoder, as in the original.  The ``*_host`` functions
-are the plain versions the tests hold the native route to.
+Routes (``LaneCodec``): made for a CUDA device, scheme A and scheme B
+run in the small lanes (``ops/scan_codecs.py``, kernels in
+``csrc/small_lanes.cu``: one warp per block to encode, one thread per
+block to decode); made for the CPU, in the native runtime's OpenMP
+batch drivers (``native``), the JAX package's production default.  On
+either device encode takes the Python host encoders when ``stats`` are
+collected (byte-identical payloads).  The ISPRINT (0x1f) mode has no
+lane and no native driver: its blocks run the host encoder and decoder
+on either device, as in the original, and the type-8 blocks of the same
+frame take the device's route.  The ``*_host`` functions are the plain
+versions the tests hold both routes to.
 """
 
 from __future__ import annotations
@@ -62,8 +66,9 @@ from typing import List
 import numpy as np
 
 from data_compression_tpu_torch import native
-from data_compression_tpu_torch.models.base import EncodeResult, HostCodec
+from data_compression_tpu_torch.models.base import EncodeResult, LaneCodec
 from data_compression_tpu_torch.models.nybble import seven_bit_blocks
+from data_compression_tpu_torch.ops import scan_codecs
 
 EIGHT_BIT_PRUNED = 8  # small_compression.c:39
 ISPRINT_LITERAL = 0x1F  # ISPRINT_IS_ALWAYS_LITERAL, small_compression.c:36
@@ -504,7 +509,7 @@ def small_nybble_decode_host(payload: bytes, raw_len: int) -> bytes:
 # ----------------------------------------------------------------------
 
 
-class SmallByteCodec(HostCodec):
+class SmallByteCodec(LaneCodec):
     name = "small_byte"
 
     def encode_blocks(
@@ -513,28 +518,36 @@ class SmallByteCodec(HostCodec):
         B = blocks.shape[0]
         lengths = np.asarray(lengths, np.int64)
         payloads = [None] * B
-        ok = seven_bit_blocks(blocks, lengths)
+        todo = np.ones(B, bool)
         if self.config.isprint_literal:
             # 0x1f mode: all-printable blocks ride it; others keep the
             # standard scheme-A stream (mixed frames are valid — decode
             # dispatches on each block's type byte)
             pos = np.arange(blocks.shape[1])[None, :] < lengths[:, None]
             printable = ~np.any(((blocks < 0x20) | (blocks > 0x7E)) & pos, axis=1)
-            for i in np.flatnonzero(printable & ok):
+            for i in np.flatnonzero(printable):
                 payloads[i] = small_isprint_encode_host(
                     blocks[i, : int(lengths[i])].tobytes(), stats=stats
                 )
-            ok &= ~printable
-        idx = np.flatnonzero(ok)
-        if stats is None:
-            enc = native.encode_batch("small_byte", blocks[idx], lengths[idx]) if idx.size else []
-            for k, i in enumerate(idx):
-                payloads[i] = enc[k]
-        else:  # stats collection rides the host encoder (byte-identical output)
+            todo &= ~printable
+        if stats is None and self.on_card:  # the lane returns blocks with bytes >= 0x80 raw
+            idx = np.flatnonzero(todo)
+            if idx.size:
+                rows = blocks if idx.size == B else blocks[idx]
+                enc = scan_codecs.small_byte_encode_blocks(rows, lengths[idx], self.device)
+                for k, i in enumerate(idx):
+                    payloads[i] = enc[k]
+            return EncodeResult(payloads=payloads)
+        idx = np.flatnonzero(todo & seven_bit_blocks(blocks, lengths))
+        if stats is not None:  # stats collection rides the host encoder (byte-identical output)
             for i in idx:
                 payloads[i] = small_byte_encode_host(
                     blocks[i, : int(lengths[i])].tobytes(), stats=stats
                 )
+        elif idx.size:
+            enc = native.encode_batch("small_byte", blocks[idx], lengths[idx])
+            for k, i in enumerate(idx):
+                payloads[i] = enc[k]
         for i in range(B):
             if payloads[i] is None:  # bytes >= 0x80: the LITERAL fallback
                 payloads[i] = blocks[i, : int(lengths[i])].tobytes()
@@ -542,26 +555,31 @@ class SmallByteCodec(HostCodec):
 
     def decode_blocks(self, payloads, raw_lens, shared_table=None):
         # per-block type dispatch: 0x1f blocks ride the host isprint
-        # decoder, type-8 blocks the native batch decoder
+        # decoder, type-8 blocks the device's route
         out = [None] * len(payloads)
         for i, p in enumerate(payloads):
             if p and p[0] == ISPRINT_LITERAL:
                 out[i] = small_isprint_decode_host(p, raw_lens[i])
         rest = [i for i in range(len(payloads)) if out[i] is None]
-        dec = native.decode_batch(
-            "small_byte", [payloads[i] for i in rest], [raw_lens[i] for i in rest]
-        )
+        rest_payloads = [payloads[i] for i in rest]
+        rest_lens = [raw_lens[i] for i in rest]
+        if self.on_card:
+            dec = scan_codecs.decode_payloads("small_byte", rest_payloads, rest_lens, self.device)
+        else:
+            dec = native.decode_batch("small_byte", rest_payloads, rest_lens)
         for i, blk in zip(rest, dec):
             out[i] = blk
         return out
 
 
-class SmallNybbleCodec(HostCodec):
+class SmallNybbleCodec(LaneCodec):
     name = "small_nybble"
 
     def encode_blocks(
         self, blocks: np.ndarray, lengths: np.ndarray, stats=None
     ) -> EncodeResult:
+        if stats is None and self.on_card:
+            return EncodeResult(scan_codecs.small_nybble_encode_blocks(blocks, lengths, self.device))
         if stats is None:
             return EncodeResult(payloads=native.encode_batch("small_nybble", blocks, lengths))
         payloads = []
@@ -571,4 +589,6 @@ class SmallNybbleCodec(HostCodec):
         return EncodeResult(payloads=payloads)
 
     def decode_blocks(self, payloads, raw_lens, shared_table=None):
+        if self.on_card:
+            return scan_codecs.decode_payloads("small_nybble", payloads, raw_lens, self.device)
         return native.decode_batch("small_nybble", payloads, raw_lens)

@@ -34,7 +34,8 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("huffman_encode.cu", "compact.cu", "huffman_decode.cu", "copy.cu", "microbench.cu",
-           "table_build.cu", "histogram.cu", "decode_tables.cu")
+           "table_build.cu", "histogram.cu", "decode_tables.cu", "nybble_lanes.cu",
+           "small_lanes.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -54,6 +55,10 @@ SIGNATURES = {
     "dct_table_build": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dct_histogram": [_P, _I64, _P, _P, _I, _I64, _I, _P],
     "dct_decode_tables": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "dct_nybble_encode": [_P, _I64, _P, _P, _I64, _P, _P, _I, _P],
+    "dct_nybble_decode": [_P, _I64, _P, _P, _P, _P, _I64, _P, _I, _P],
+    "dct_small_encode": [_I, _P, _I64, _P, _P, _I64, _P, _P, _I, _P],
+    "dct_small_decode": [_I, _P, _I64, _P, _P, _P, _P, _I64, _P, _P, _I, _P],
 }
 
 _lock = threading.Lock()

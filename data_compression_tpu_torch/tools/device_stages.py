@@ -10,13 +10,17 @@ per-block histogram on that input and on the same size of one byte value
 ``device_api.compress_blocks_device``, of the decode tables from the
 compressed table rows by their kernel (``decode_tables``) and by their
 plain torch ops (``decode_tables_device``), and of
-``device_api.decode_blocks_device``.  Each time is the best of 3
-chained trials (``timing.time_chain``, ``*_ms``; where the host's
-enqueue of a call outlasts its kernels, this is host time), and beside
-it the device time per call of back-to-back calls held behind a spin
-kernel (``timing.device_ms``, ``*_device_ms``).  One JSON line per arity
-and repetition, with the card's name and power limit and the directory
-of the package that was timed (``root``: the first on ``sys.path``).
+``device_api.decode_blocks_device``; then, for each serial codec
+(nybble, small_byte, small_nybble), of its encode lane on the blocks and
+of its decode lane on that lane's payloads (``ops/kernels/
+serial_lanes.py``).  Each time is the best of 3 chained trials
+(``timing.time_chain``, ``*_ms``; where the host's enqueue of a call
+outlasts its kernels, this is host time), and beside it the device time
+per call of back-to-back calls held behind a spin kernel
+(``timing.device_ms``, ``*_device_ms``).  One JSON line per arity or
+codec and repetition, with the card's name and power limit and the
+directory of the package that was timed (``root``: the first on
+``sys.path``).
 Needs a CUDA device.
 """
 
@@ -30,7 +34,9 @@ import numpy as np
 import torch
 
 from data_compression_tpu_torch import CodecConfig, device_api, framing
+from data_compression_tpu_torch.ops.kernels import compact as kcompact
 from data_compression_tpu_torch.ops.kernels import histogram as khist
+from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
 from data_compression_tpu_torch.ops import table_build as tbd
 from data_compression_tpu_torch.ops.kernels import table_build as ktb
 from data_compression_tpu_torch.tools import timing
@@ -39,6 +45,7 @@ from data_compression_tpu_torch.utils.corpora import deep_code_block, enwik_like
 ARITIES = (2, 16, 3)
 SEED = 7
 TRIAL_S = 0.05
+LANE_ITERS = 4  # calls a lane's reading chains (each lane takes ms)
 
 
 def main(argv=None) -> int:
@@ -56,8 +63,10 @@ def main(argv=None) -> int:
     one = torch.zeros_like(dev_blocks)
     hists = khist.block_histograms(dev_blocks, dev_lens)
 
-    def ms(fn):
-        return timing.time_chain(fn, iters=12, min_trial_s=TRIAL_S) * 1e3
+    root = str(sys.modules["data_compression_tpu_torch"].__path__[0])
+
+    def ms(fn, iters=12):
+        return timing.time_chain(fn, iters=iters, min_trial_s=TRIAL_S) * 1e3
 
     for rep in range(args.reps):
         for n in ARITIES:
@@ -76,13 +85,27 @@ def main(argv=None) -> int:
                 "decompress": lambda: device_api.decode_blocks_device(
                     *inputs, dc.table_rows, n, cfg.chunk_syms, device=dev),
             }
-            row = {"root": str(sys.modules["data_compression_tpu_torch"].__path__[0]),
-                   "rep": rep, "arity": n, "mib": args.mib, "card": card}
+            row = {"root": root, "rep": rep, "arity": n, "mib": args.mib, "card": card}
             for name, step in steps.items():
                 row[f"{name}_ms"] = ms(step)
                 row[f"{name}_device_ms"] = timing.device_ms(step)
             row["compress_gbps"] = size / row["compress_ms"] / 1e6
             row["decompress_gbps"] = size / row["decompress_ms"] / 1e6
+            print(json.dumps(row), flush=True)
+        for kind in lanes.KINDS:
+            enc, dec = lanes.ENCODERS[kind], lanes.DECODERS[kind]
+            rows, totals, status = enc(dev_blocks, dev_lens)
+            ok = status == lanes.OK
+            plens = totals[ok]
+            dargs = (kcompact.compact_blocks(rows[ok], plens),
+                     torch.cumsum(plens, 0, dtype=torch.int64) - plens, plens, dev_lens[ok],
+                     blocks.shape[1])
+            row = {"root": root, "rep": rep, "codec": kind, "mib": args.mib,
+                   "blocks": int(ok.sum()), "card": card}
+            for name, step in (("encode", lambda: enc(dev_blocks, dev_lens)),
+                               ("decode", lambda: dec(*dargs))):
+                row[f"{name}_ms"] = ms(step, LANE_ITERS)
+                row[f"{name}_device_ms"] = timing.device_ms(step, LANE_ITERS)
             print(json.dumps(row), flush=True)
     return 0
 

@@ -40,7 +40,9 @@ from data_compression_tpu_torch.utils.corpora import (
     enwik_like,
     printable_like,
 )
-from torch_cases import decode_table_rows, hist_blocks
+from data_compression_tpu_torch.ops import scan_codecs as psc
+from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
+from torch_cases import LANE_KINDS, decode_table_rows, hist_blocks, lane_blocks
 
 pytestmark = pytest.mark.cuda
 ARITIES = [2, 16, 3]
@@ -629,13 +631,48 @@ SERIAL = [("literal", {}), ("nybble", {}), ("small_byte", {}),
 @pytest.mark.parametrize("codec,kw", SERIAL, ids=["literal", "nybble", "small_byte",
                                                   "small_byte_isprint", "small_nybble"])
 def test_serial_codecs_round_trip_on_cuda(cuda, codec, kw):
-    """Made for cuda, the serial codecs run on the host: the frame is the
-    CPU's and round-trips."""
+    """Made for cuda, nybble, small_byte (its type-8 blocks) and
+    small_nybble encode and decode in the lanes, the compaction packing
+    the encode rows; literal and the ISPRINT mode's 0x1f blocks run on
+    the host.  The frame is the CPU's and round-trips."""
     x = enwik_like(300_000, 64) + printable_like(65536, 65) + bytes(range(256)) * 40
     cfg = pt.CodecConfig(codec=codec, **kw)
+    wrappers = ([lanes.ENCODERS[codec], lanes.DECODERS[codec], kcmp.compact_blocks]
+                if codec != "literal" else [])
+    before = [w.launches for w in wrappers]
     frame = pt.compress(x, cfg, device=cuda)
-    assert frame == pt.compress(x, cfg, device="cpu")
     assert pt.decompress(frame, device=cuda) == x
+    assert all(w.launches > b for w, b in zip(wrappers, before))
+    assert frame == pt.compress(x, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("codec,kw", SERIAL[1:], ids=["nybble", "small_byte",
+                                                      "small_byte_isprint", "small_nybble"])
+def test_serial_corrupt_frames_raise_on_cuda(cuda, codec, kw):
+    """``tests/test_torch_serial.py``'s bit-flip and truncation fuzz on
+    cuda: 1.5 blocks of text; one to three flipped bits in the payloads,
+    the type, first and last payload byte flipped, and the frame cut at
+    25-99%, each raises ValueError through the lanes."""
+    cfg = pt.CodecConfig(codec=codec, block_size=8192, **kw)
+    rng = np.random.default_rng(len(codec) + len(kw))
+    make = printable_like if kw else enwik_like
+    stream = pt.compress(make(12288, int(rng.integers(1 << 30))), cfg, device=cuda)
+    frame = framing.unpack_frame(stream)
+    lo, hi = len(stream) - sum(e.comp_len for e in frame.entries), len(stream)
+    corrupt = []
+    for _ in range(40):
+        c = bytearray(stream)
+        for _ in range(int(rng.integers(1, 4))):
+            c[int(rng.integers(lo, hi))] ^= 1 << int(rng.integers(0, 8))
+        corrupt.append(bytes(c))
+    for pos in (lo, lo + 1, hi - 1):
+        c = bytearray(stream)
+        c[pos] ^= 0xFF
+        corrupt.append(bytes(c))
+    corrupt += [stream[: int(len(stream) * f)] for f in (0.25, 0.5, 0.9, 0.99)]
+    for c in corrupt:
+        with pytest.raises(ValueError):
+            pt.decompress(c, device=cuda)
 
 
 def test_serial_codec_for_cuda_with_cuda_hidden_raises(cuda, monkeypatch):
@@ -718,7 +755,7 @@ def test_build_tables_kernel_matches_plain_and_native(cuda, n):
 
 
 @pytest.mark.parametrize("source", ["histogram.cu", "table_build.cu", "decode_tables.cu",
-                                    "microbench.cu"])
+                                    "microbench.cu", "nybble_lanes.cu", "small_lanes.cu"])
 def test_kernels_use_no_stack_and_no_spill(cuda, source):
     usage = _build.ptxas_usage(source)
     assert usage
@@ -934,3 +971,229 @@ def test_device_decode_reads_nothing_outside_flat(cuda, n):
             written[start[b]:max(start[b], start[b + 1])] = True
         mask = valid & written[:, None]
         assert torch.equal(outs[0][mask], outs[1][mask]), name
+
+
+# ---- the serial codecs' lanes ----------------------------------------------
+
+SEVEN_BIT = {"nybble": True, "small_byte": True, "small_nybble": False}
+GUARD = 4096
+
+
+def _lane_flat(payloads, dev):
+    plens = np.array([len(p) for p in payloads], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(plens)[:-1]]).astype(np.int64)
+    flat = np.frombuffer(b"".join(payloads), np.uint8).copy()
+    return (torch.from_numpy(flat).to(dev), torch.from_numpy(offsets).to(dev),
+            torch.from_numpy(plens.astype(np.int32)).to(dev))
+
+
+def _native_payloads(kind, blocks, lengths):
+    """(rows the scheme takes, their raw bytes, their native payloads)."""
+    keep = [i for i, (b, n) in enumerate(zip(blocks, lengths))
+            if not (SEVEN_BIT[kind] and n and b[:n].max() >= 0x80)]
+    raws = [blocks[i, : lengths[i]].tobytes() for i in keep]
+    return keep, raws, [getattr(native, f"{kind}_encode")(r) for r in raws]
+
+
+def _lanes_against_plain(kind, blocks, lengths, dev):
+    """Encode and decode lanes on the card against their plain versions
+    on the CPU, on the same inputs; the decode on the encoder's payloads."""
+    B, S = blocks.shape
+    enc, dec = lanes.ENCODERS[kind], lanes.DECODERS[kind]
+    bt, lt = torch.from_numpy(blocks), torch.from_numpy(lengths)
+    before = (enc.launches, dec.launches)
+    rows, totals, status = enc(bt.to(dev), lt.to(dev))
+    want_rows, want_totals, want_status = enc(bt, lt)
+    assert torch.equal(status.cpu(), want_status) and torch.equal(totals.cpu(), want_totals)
+    for i in range(B):
+        n = int(want_totals[i])
+        assert torch.equal(rows[i, :n].cpu(), want_rows[i, :n]), i
+    ok = [i for i in range(B) if int(want_status[i]) == lanes.OK]
+    payloads = [want_rows[i, : int(want_totals[i])].numpy().tobytes() for i in ok]
+    raw = torch.from_numpy(lengths[ok].astype(np.int32))
+    flat, offs, plens = _lane_flat(payloads, "cpu")
+    out, st = dec(flat.to(dev), offs.to(dev), plens.to(dev), raw.to(dev), S)
+    want_out, want_st = dec(flat, offs, plens, raw, S)
+    assert st.cpu().tolist() == want_st.tolist() == [lanes.OK] * len(ok)
+    for k, i in enumerate(ok):
+        n = int(lengths[i])
+        assert out[k, :n].cpu().numpy().tobytes() == want_out[k, :n].numpy().tobytes() \
+            == blocks[i, :n].tobytes(), i
+    assert (enc.launches, dec.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("kind", LANE_KINDS)
+@pytest.mark.parametrize("B,S", [(1, 1), (7, 4096), (130, 6144), (10, 65536)])
+def test_lane_kernels_match_plain_versions(cuda, kind, B, S):
+    """Rows of every kind of ``lane_blocks`` (ragged, empty, slot wrap,
+    the banned first word, one byte value, bytes >= 0x80), up to the
+    codecs' default 64 KiB blocks (the plain step loops take 1-3 minutes
+    on the CPU there)."""
+    blocks, lengths = lane_blocks(kind, S, B + S, B=B)
+    _lanes_against_plain(kind, blocks, lengths, cuda)
+
+
+@pytest.mark.parametrize("kind", LANE_KINDS)
+def test_lane_kernels_match_plain_versions_on_one_byte_value(cuda, kind):
+    """64 KiB of one byte value: the deepest words, up to the match caps
+    (255 bytes, 511 nybbles)."""
+    blocks = np.full((1, 65536), ord("a"), np.uint8)
+    _lanes_against_plain(kind, blocks, np.array([65536]), cuda)
+
+
+@pytest.mark.parametrize("kind", LANE_KINDS)
+def test_lane_kernels_at_64k_match_the_native_runtime(cuda, kind):
+    blocks, lengths = lane_blocks(kind, 65536, 91)
+    keep, raws, payloads = _native_payloads(kind, blocks, lengths)
+    got = psc.encode_payloads(kind, blocks, lengths, cuda)
+    assert [got[i] for i in keep] == payloads
+    assert psc.decode_payloads(kind, payloads, [len(r) for r in raws], cuda) == raws
+
+
+def _guarded(n, fill, dev):
+    """(canvas, its middle n bytes) with GUARD bytes of ``fill`` each side."""
+    canvas = torch.full((n + 2 * GUARD,), fill, dtype=torch.uint8, device=dev)
+    return canvas, canvas[GUARD: GUARD + n]
+
+
+def _guards_intact(canvas, fill):
+    return bool((canvas[:GUARD] == fill).all()) and bool((canvas[-GUARD:] == fill).all())
+
+
+@pytest.mark.parametrize("kind", LANE_KINDS)
+def test_lane_encoders_keep_to_their_rows(cuda, kind):
+    """Rows of exactly the worst case's width, and one byte narrower
+    (full rows then report CAPACITY), inside guard bytes."""
+    S = 4096
+    blocks, lengths = lane_blocks(kind, S, 92)
+    B = blocks.shape[0]
+    dev_blocks = torch.from_numpy(blocks).to(cuda)
+    dev_lens = torch.from_numpy(lengths.astype(np.int32)).to(cuda)
+    want_rows, want_totals, want_status = lanes.ENCODERS[kind](dev_blocks, dev_lens)
+    W = lanes.row_width(kind, S)
+    for width in (W, W - 1):
+        canvas, rows = _guarded(B * width, 0xA5, cuda)
+        totals = torch.empty(B, dtype=torch.int32, device=cuda)
+        status = torch.empty(B, dtype=torch.int32, device=cuda)
+        args = (dev_blocks.data_ptr(), S, dev_lens.data_ptr(), rows.data_ptr(), width,
+                totals.data_ptr(), status.data_ptr(), B, _build.stream_of(dev_blocks))
+        if kind == "nybble":
+            rc = _build.lib().dct_nybble_encode(*args)
+        else:
+            rc = _build.lib().dct_small_encode(int(kind == "small_nybble"), *args)
+        _build.check(rc, "encode lane")
+        torch.cuda.synchronize()
+        assert _guards_intact(canvas, 0xA5)
+        full = torch.from_numpy(lengths == S).to(cuda)
+        expect = torch.where(full & (width < W), lanes.CAPACITY, want_status)
+        assert torch.equal(status, expect)
+        rows = rows.view(B, width)
+        for i in range(B):
+            if int(expect[i]) == lanes.OK:
+                n = int(want_totals[i])
+                assert int(totals[i]) == n and torch.equal(rows[i, :n], want_rows[i, :n])
+
+
+def _random_payloads(kind, B, seed):
+    rng = np.random.default_rng(seed)
+    type_byte = psc.TYPE_BYTE[kind]
+    payloads = []
+    for _ in range(B):
+        body = rng.integers(0, 256, int(rng.integers(0, 3000)), dtype=np.uint8).tobytes()
+        payloads.append(bytes([type_byte if rng.random() < 0.9 else 0x41]) + body)
+    return payloads, rng.integers(0, 4097, B).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", LANE_KINDS)
+def test_lane_decoders_keep_to_their_rows(cuda, kind):
+    """Random payload bytes (and real ones): between guard fills 0x00 and
+    0xFF around the payloads, the output rows and the nybble scratch, the
+    status and every decoded row come out the same, as the plain
+    version's, and no guard byte changes."""
+    S = 4096
+    blocks, lengths = lane_blocks(kind, S, 95)
+    _, raws, real = _native_payloads(kind, blocks, lengths)
+    payloads, raw = _random_payloads(kind, 54, 96)
+    payloads += real
+    raw = np.concatenate([raw, [len(r) for r in raws]]).astype(np.int32)
+    B = len(payloads)
+    flat_c, offs, plens = _lane_flat(payloads, "cpu")
+    raw_c = torch.from_numpy(raw)
+    want_out, want_st = lanes.DECODERS[kind](flat_c, offs, plens, raw_c, S)
+    assert {int(s) for s in want_st} == {lanes.OK, lanes.FORMAT}
+    seen = []
+    for fill in (0x00, 0xFF):
+        flat_canvas, flat = _guarded(flat_c.numel(), fill, cuda)
+        flat.copy_(flat_c)
+        out_canvas, out = _guarded(B * S, fill, cuda)
+        scratch_canvas, scratch = _guarded(B * 2 * S, fill, cuda)
+        status = torch.empty(B, dtype=torch.int32, device=cuda)
+        lib = _build.lib()
+        dev_offs, dev_plens, dev_raw = offs.to(cuda), plens.to(cuda), raw_c.to(cuda)
+        common = (flat.data_ptr(), flat.numel(), dev_offs.data_ptr(), dev_plens.data_ptr(),
+                  dev_raw.data_ptr())
+        if kind == "nybble":
+            rc = lib.dct_nybble_decode(*common, out.data_ptr(), S, status.data_ptr(), B,
+                                       _build.stream_of(flat))
+        else:
+            rc = lib.dct_small_decode(int(kind == "small_nybble"), *common, out.data_ptr(), S,
+                                      scratch.data_ptr(), status.data_ptr(), B,
+                                      _build.stream_of(flat))
+        _build.check(rc, "decode lane")
+        torch.cuda.synchronize()
+        for canvas in (flat_canvas, out_canvas, scratch_canvas):
+            assert _guards_intact(canvas, fill)
+        assert torch.equal(status.cpu(), want_st)
+        out = out.view(B, S).cpu()
+        rows = [out[i, : raw[i]] for i in range(B) if int(want_st[i]) == lanes.OK]
+        for i in range(B):
+            if int(want_st[i]) == lanes.OK:
+                assert torch.equal(out[i, : raw[i]], want_out[i, : raw[i]]), i
+        seen.append(rows)
+    assert all(torch.equal(a, b) for a, b in zip(*seen))
+
+
+@pytest.mark.parametrize("kind", LANE_KINDS)
+def test_serial_lanes_make_no_host_read(cuda, kind):
+    """Between the upload and the downloads (the totals and status, then
+    the payload bytes; the rows and status) neither the lanes nor the
+    compaction given the total read back: each runs under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    blocks, lengths = lane_blocks(kind, 4096, 97)
+    dev_blocks = torch.from_numpy(blocks).to(cuda)
+    dev_lens = torch.from_numpy(lengths.astype(np.int32)).to(cuda)
+
+    def no_sync(fn, *args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    rows, totals, status = no_sync(lanes.ENCODERS[kind], dev_blocks, dev_lens)
+    tot = totals.cpu().numpy()
+    flat = no_sync(kcmp.compact_blocks, rows, totals, total=int(tot.sum())).cpu().numpy()
+    want = psc.encode_payloads(kind, blocks, lengths, "cpu")
+    ends = np.cumsum(tot)
+    st = status.cpu().numpy()
+    for i in range(len(tot)):
+        if st[i] == lanes.OK:
+            assert flat[ends[i] - tot[i]: ends[i]].tobytes() == want[i]
+    keep, raws, payloads = _native_payloads(kind, blocks, lengths)
+    args = _lane_flat(payloads, cuda) + (
+        torch.from_numpy(lengths[keep].astype(np.int32)).to(cuda), 4096)
+    out, st = no_sync(lanes.DECODERS[kind], *args)
+    assert st.cpu().tolist() == [lanes.OK] * len(keep)
+    out = out.cpu().numpy()
+    assert [out[k, : len(r)].tobytes() for k, r in enumerate(raws)] == raws
+
+
+def test_serial_lane_wrappers_reject_bad_cuda_inputs(cuda):
+    blocks = torch.zeros((2, 8), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="different devices"):
+        lanes.small_byte_decode(blocks[0], torch.zeros(2, dtype=torch.int64),
+                                torch.zeros(2, dtype=torch.int32, device=cuda),
+                                torch.zeros(2, dtype=torch.int32, device=cuda), 8)
+    with pytest.raises(ValueError, match="integers"):
+        lanes.nybble_encode(blocks, torch.zeros(2, device=cuda))

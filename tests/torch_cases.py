@@ -72,3 +72,41 @@ def decode_table_rows(kind, arity, B, seed):
     else:
         raise ValueError(f"unknown decode-table case {kind!r}")
     return np.asarray(rows).astype(np.uint8)
+
+
+LANE_KINDS = ("nybble", "small_byte", "small_nybble")
+
+
+def lane_blocks(kind, S, seed, B=None):
+    """([B, S] uint8 blocks, [B] int64 lengths) for the serial lanes, one
+    row of each: a repeated sentence; dictionary slot wrap (small_nybble:
+    bytes 1-15, else 1-23); lengths 0, 1 and 2; text of length S - 37; a
+    first word in the context of ' ' (the banned-slot rule); one byte
+    value (the deepest words, each ending where the next is written);
+    bytes 0-255 (raw for nybble and small_byte); 7-bit random bytes.
+    With ``B``, the rows repeat in turn, each from its own seed."""
+    if B is not None:
+        parts = [lane_blocks(kind, S, seed + 1000 * k) for k in range(-(-B // 10))]
+        blocks = np.concatenate([p[0] for p in parts])[:B]
+        return blocks, np.concatenate([p[1] for p in parts])[:B]
+    rng = np.random.default_rng(seed)
+    text = enwik_like(max(S, 1), seed)
+    rows = [
+        b"the cat sat on the mat. " * (S // 24 + 1),
+        bytes(rng.integers(1, 16 if kind == "small_nybble" else 24, S, dtype=np.uint8)),
+        b"",
+        text[:1],
+        text[:2],
+        text[: max(S - 37, 0)],
+        b" " + text,
+        b"a" * S,
+        bytes(rng.integers(0, 256, S, dtype=np.uint8)),
+        bytes(rng.integers(0, 128, S, dtype=np.uint8)),
+    ]
+    blocks = np.zeros((len(rows), S), np.uint8)
+    lengths = np.zeros(len(rows), np.int64)
+    for i, r in enumerate(rows):
+        r = r[:S]
+        blocks[i, : len(r)] = np.frombuffer(r, np.uint8)
+        lengths[i] = len(r)
+    return blocks, lengths
