@@ -65,11 +65,17 @@ script exits non-zero without a result line):
      input, on 64 KiB of one byte value and on 64 KiB of 7-bit random
      bytes, and against its plain version, byte for byte, on the same
      blocks and payloads (the plain step loop run on the card once on
-     the 1,024 blocks and the two edge blocks together, and timed); each
-     timed at 64 MiB (chain and device ms) beside its
-     HBM bound and its serial-chain floor (steps of the longest lane x
-     one step's dependent cycles read off the source, at the SM clock a
-     spin kernel measures).  Then each serial codec (literal, nybble,
+     the 1,024 blocks and the two edge blocks together, and timed; the
+     small encoders' step is one CUDA graph replay); the small encoders
+     and decoders also against the native batch drivers on three 24 MiB
+     (small_byte) or 16 MiB (small_nybble) blocks, one of which rewrites
+     each slot of its context more than 65,535 times
+     (``corpora.long_small_blocks``); each timed at 64 MiB (chain and
+     device ms) beside its HBM bound and its serial-chain floor (steps of
+     the longest lane x one step's dependent cycles read off the source,
+     at the SM clock a spin kernel measures), with its CTAs resident an
+     SM (occupancy API) and the waves of the 64 MiB launch.  Then each
+     serial codec (literal, nybble,
      small_byte, small_byte with the ISPRINT mode, small_nybble) made for
      ``cuda``: ``compress`` -> ``decompress`` of the 64 MiB input must
      round-trip exactly through the lanes, each lane of its path and the
@@ -135,7 +141,10 @@ have ``floor_ms`` / ``floor_copy_kernel_ms`` (the reachable floor) and
 JAX lane, which reaches no Pallas kernel) have ``device_ms``, the plain
 version's ms at ``plain_shape``, ``hbm_bound_ms`` and
 ``chain_floor_ms`` with its steps, cycles a step and ``sm_mhz``, the
-higher of the two as ``bound_ms``).  A time per call is the best of 3 trials
+higher of the two as ``bound_ms``, ``layout``, ``ctas_per_sm``,
+``blocks_per_cta``, ``threads_per_cta``, ``smem_per_cta`` (read off the
+kernel, ``serial_lanes.lane_occupancy``) and ``waves``; the small encoders' ``long_block_*``:
+the long blocks' size, a slot's rewrites and the three statuses).  A time per call is the best of 3 trials
 of back-to-back calls, each at least 0.05 s
 (``tools.timing.time_chain``), the lookup variants' the median of
 single launches with the input cold in L2 (``tools.timing.cold_ms``).
@@ -602,18 +611,25 @@ LANES = [
 # dependent integer operations) from one step's state to the next's.
 # nybble encode: the row load, two byte compares, find-first, the
 # move-to-front mask and merge; decode adds the byte's extraction and
-# its splat.  small encode: the prefix slot's gen load, the target key,
-# the 64-bit compares, ballots, the first match across the four
-# quarters and the next index (scheme B: the literal shortcut's test).
+# its splat.  small encode: the target key from the index, the compares
+# and offers (2), the two-level minimum (2), the warp's minimum
+# (`__reduce_min_sync`), the test and the next index (2) (scheme B: the
+# literal shortcut's select); no shared load.
 # small decode: the context, the entry load and its fields (scheme B:
 # the last-three-nybbles merge); the span copy's global load, which an
 # in-order thread waits on before its store, is left out of the floor.
 LANE_CHAIN = {"nybble_encode": (1, 12), "nybble_decode": (1, 17),
-              "small_byte_encode": (1, 16), "small_byte_decode": (1, 8),
-              "small_nybble_encode": (1, 19), "small_nybble_decode": (1, 14)}
+              "small_byte_encode": (0, 8), "small_byte_decode": (1, 8),
+              "small_nybble_encode": (0, 9), "small_nybble_decode": (1, 14)}
 SHARED_LOAD_CYCLES = 30  # H100 shared-memory load latency, about 30 cycles (assumed)
 INT_OP_CYCLES = 4  # a dependent integer operation, about 4 cycles (assumed)
 LANE_EDGE_BYTES = 65536  # phase 8: one block of one byte value, one of 7-bit random bytes
+# phase 8: the small encoders on blocks long enough that some dictionary
+# slot is written more than 65,535 times (a 16-bit generation counter
+# would wrap): bytes whose context is all one (& 31 == 1) put every insert
+# into one context's 127 (scheme A) or 128 (scheme B) slots, at about
+# 0.41 / 0.55 words a byte (native encoder)
+LONG_LANE_BYTES = {"small_byte": 24 << 20, "small_nybble": 16 << 20}
 SERIAL = [
     # (label, config kwargs, lanes of its path)
     ("literal", dict(codec="literal"), ()),
@@ -719,6 +735,28 @@ def lane_against_plain(kind: str, main: tuple, edges: tuple, dev) -> tuple:
     return enc_err, dec_err, enc_ms, dec_ms
 
 
+def long_lane_check(kind: str, dev) -> dict:
+    """The small encoder (and decoder) of ``kind`` against the native
+    batch drivers on ``corpora.long_small_blocks``; -> what the kernels
+    line notes."""
+    import numpy as np
+
+    from data_compression_tpu_torch.utils.corpora import long_small_blocks
+
+    S = LONG_LANE_BYTES[kind]
+    blocks, lengths = long_small_blocks(S, SEED), np.full(3, S, np.int64)
+    _, _, _, totals, status, _ = lane_check(kind, blocks, lengths, dev, f"3 x {S} bytes")
+    words = int(totals[0]) - 2
+    slots = 128 if kind == "small_nybble" else 127
+    writes = (words - 1) // slots  # every word but the first inserts into context 1
+    if writes <= 65535:
+        raise AssertionError(f"{kind}: the one-context block wrote a slot only {writes} times")
+    log(f"lanes {kind}: {S}-byte blocks equal the native batch driver's; the one-context block's "
+        f"{words} words write each slot of its context at least {writes} times (> 65,535)")
+    return {"long_block_bytes": S, "long_block_slot_writes": writes,
+            "long_block_status": status.cpu().tolist()}
+
+
 def lane_phase(data: bytes, dev, card: str) -> dict:
     """Phase 8a: each lane kernel against the native batch drivers on the
     whole 64 MiB input, on 64 KiB of one byte value and on 64 KiB of
@@ -749,6 +787,7 @@ def lane_phase(data: bytes, dev, card: str) -> dict:
             f"edge blocks, {plain_shape} bytes (max abs err {enc_err} / {dec_err}); plain "
             f"encode {enc_plain_ms:.1f} ms, plain decode {dec_plain_ms:.1f} ms on the card; "
             f"card {card}")
+        long = long_lane_check(kind, dev) if kind != "nybble" else {}
         fb, fl, _, totals, _, dargs = main
         n = lengths.astype(np.int64)
         tot = totals.cpu().numpy().astype(np.int64)
@@ -764,6 +803,7 @@ def lane_phase(data: bytes, dev, card: str) -> dict:
             "decode": (chain_ms(lambda: dec(*dargs), 2), timing.device_ms(lambda: dec(*dargs), 4)),
         }
         clock = sm_cycles_per_ms()
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for direction, plain_ms, err in (("encode", enc_plain_ms, enc_err),
                                          ("decode", dec_plain_ms, dec_err)):
             name = f"{kind}_{direction}"
@@ -777,10 +817,15 @@ def lane_phase(data: bytes, dev, card: str) -> dict:
                 bound_ms=max(floor, hbm), bound_by="operations" if floor >= hbm else "bytes",
                 hbm_bound_ms=hbm, chain_floor_ms=floor, chain_steps=steps[direction],
                 chain_step_cycles=cycles, sm_mhz=clock / 1e3, library_ms=None)
+            occ = lanes.lane_occupancy(name)
+            ctas, per_cta = occ["ctas_per_sm"], occ["blocks_per_cta"]
+            waves = -(-len(n) // (ctas * per_cta * sms))
+            results[name].update(**occ, waves=waves, **(long if direction == "encode" else {}))
             log(f"kernel {name}: 64 MiB {ms:.4f} ms (device {dms:.4f} ms); HBM bound "
                 f"{hbm:.4f} ms, serial-chain floor {floor:.4f} ms ({steps[direction]} steps x "
                 f"{cycles} cycles at {clock / 1e3:.0f} MHz), {ms / max(floor, hbm):.2f}x the "
-                f"higher; plain {plain_ms:.1f} ms on {plain_shape}; card {card}")
+                f"higher; plain {plain_ms:.1f} ms on {plain_shape}; {ctas} CTAs x {per_cta} "
+                f"blocks an SM resident, {len(n)} blocks in {waves} wave(s); card {card}")
         del fb, fl, totals, dargs, main, edge
         torch.cuda.empty_cache()
     return results

@@ -219,3 +219,20 @@ extern "C" int dct_nybble_decode(const void* flat, long long flat_len, const voi
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// CTAs of a nybble lane kernel resident on an SM at once (occupancy API),
+// the blocks (lanes) one CTA holds, its threads and its shared bytes; as
+// dct_small_occupancy.
+extern "C" int dct_nybble_occupancy(int decode, void* ctas, void* lanes_per_cta, void* threads,
+                                    void* smem_bytes) {
+  const void* fn = decode ? reinterpret_cast<const void*>(nybble_decode_kernel)
+                          : reinterpret_cast<const void*>(nybble_encode_kernel);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *static_cast<int*>(lanes_per_cta) = kLanes;
+  *static_cast<int*>(threads) = kLanes;
+  *static_cast<int*>(smem_bytes) = static_cast<int>(attr.sharedSizeBytes);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(static_cast<int*>(ctas), fn, kLanes, 0));
+}

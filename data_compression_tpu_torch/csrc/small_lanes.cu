@@ -25,32 +25,64 @@
 // search steps; bytes are no limit (64 MiB in and out moves in 0.04 ms).
 //
 // Encoder: one warp per block, one warp to a CTA.
-//   * the search state sits in dynamic shared memory: per context and
-//     slot a 64-bit key, prefix_gen << 32 | (prefix & 0xFFFF) << 8 |
-//     letter, and a 32-bit gen; 32 x 128 x 12 bytes = 48 KiB and the 32
-//     next-slot counters: 49,280 bytes a warp, 4 warps an SM.  Scheme B
-//     stores slots 0x80..0xFF only: slots below 0x80 are never written
-//     (their gen stays 0, their content is the default).  Widths: gen
-//     counts the writes of one slot, at most 2S / 127 < 2^32 for any S.
-//     start and length are not kept: the encoder never reads them (a
-//     slot holds a span exactly when its gen is above 0);
-//   * the child search is one pass of the warp over the slots: lane l
-//     holds the keys of slots l, l + 32, l + 64, l + 96 in registers for
-//     the whole word (they change only at the insert after it), compares
-//     them with (want_gen, index, symbol), and four `__ballot_sync`s
-//     give the matches in slot order; the banned slot's bit is cleared
-//     and the first set bit is the C's first match (libdctpu.c:291-303,
-//     :479-505).  Folding the gen check into the key is exact: a slot
-//     whose prefix is a literal (or a default word) was written with
-//     prefix_gen 0, and for those the search wants 0.  Scheme B keeps
-//     the C's shortcut: a literal prefix followed by a nybble that forms
-//     a non-literal default below 0x80 is that default slot;
-//   * one step is a broadcast shared load (the prefix slot's gen), four
-//     compares, four ballots and a find-first: about 40-60 dependent
-//     cycles.
+//   * the dictionary keeps only what the search compares: per context
+//     and slot a 32-bit key, prefix << 8 | letter (scheme A: prefix
+//     0..0xFE, letter a whole byte) or prefix << 4 | letter (scheme B:
+//     the -1 prefix of the first word is 0x1FF), in dynamic
+//     shared memory, 32 x 128 x 4 = 16,384 bytes a warp: 13 CTAs an SM
+//     (the occupancy API on the H100), so 1,026 blocks run in one wave,
+//     where 48 KiB a warp ran 4 an SM in two.  A lane's four slots (l,
+//     l + 32, l + 64, l + 96) of a context sit side by side, one 16-byte
+//     load;
+//   * no generation counters.  The C keeps a slot's gen and each key's
+//     prefix_gen so that a child whose prefix slot has been rewritten no
+//     longer matches (libdctpu.c:291-303, :479-505).  Here the insert
+//     into slot s drops those children at once: every key of the context
+//     whose prefix is slot s becomes kNoKey (prefix field 0xFFFFFF /
+//     0xFFFFFFF, which no search asks for).  A key then matches exactly
+//     when the C's key and gen check both pass (gens only grow, so a
+//     dropped child never matches again; the new key's own prefix is
+//     current when it is written), and nothing bounds the block size: no
+//     counter can wrap.  Slots whose prefix is a literal or a scheme-B
+//     default below 0x80 are never dropped, as in the C;
+//   * every lane reads and writes only its own four slots of each
+//     context, and a context's next-slot counter sits in the register of
+//     the lane of that number (taken by `__shfl_sync`): no `__syncwarp`
+//     and no shared counter.  The slot's owner commits the insert;
+//   * the insert comes first.  The C searches the new word, then inserts
+//     the previous word + the new word's first symbol into the previous
+//     word's context at its next slot s, which it bans from the search
+//     when the contexts are equal (libdctpu.c:322-343).  The search then
+//     never reaches slot s: the banned slot is no result, so no index
+//     and no key it compares names slot s.  Inserting first gives the
+//     same output, and puts the insert where the previous word fails to
+//     extend: into the context whose keys the registers hold, with the
+//     key that failed (its index and the symbol that ends it);
+//   * one loop step a symbol: the step tries to extend the word in
+//     flight with symbol i.  Lane l compares the registers of its four
+//     slots with the target key and offers, for each match, the index
+//     that slot gives (0x80 + slot; ~0 for the banned slot, folded into
+//     those four offers when a word starts), and `__reduce_min_sync`
+//     gives the least: the C's first match.  Scheme B keeps the C's
+//     shortcut, a literal prefix followed by a nybble that forms a
+//     non-literal default below 0x80 is that default slot.  When the
+//     word fails to extend, it is emitted, the insert is made in the
+//     registers and stored by the lanes whose keys changed, and a word
+//     starts at i.  The keys and slot counter of the context that word
+//     would have are loaded at the start of every step, and the input is
+//     read one symbol ahead, so no word start waits on a load;
+//   * scheme A refuses a block with a byte >= 0x80: the C checks the
+//     bytes at and before each word start, and every such byte is one of
+//     those (no key has a letter >= 0x80, so no word extends over one),
+//     so the loop ORs the bytes together and never leaves early;
+//   * one step's chain: the target key from the index, the compares and
+//     offers, a three-way minimum, the warp's minimum, the test and the
+//     next index (scheme B: the shortcut's select).  Nothing in shared
+//     memory is on it.
 // Decoder: one thread per block, one thread to a CTA.
 //   * the span dictionary, one 64-bit entry per context and slot, sits
-//     in dynamic shared memory (32 x 128 x 8 = 32 KiB, 7 CTAs an SM):
+//     in dynamic shared memory (32 x 128 x 8 = 32 KiB, 6 CTAs an SM by
+//     the occupancy API on the H100, so 1,024 blocks take two waves):
 //     start (32 bits, all ones for a default), length (16 bits), and the
 //     word's first and last symbol (scheme A: first and last byte;
 //     scheme B: first nybble and the last three), so a step never reads
@@ -85,10 +117,10 @@ constexpr int kCtx = 32;
 constexpr int kStride = 128;  // stored slots per context (scheme A uses 127)
 constexpr int kOk = 0, kInput = 1, kCapacity = 2, kFormat = 3;
 constexpr uint32_t kType = 8;  // EIGHT_BIT_PRUNED
-constexpr uint64_t kNoKey = ~0ull;  // scheme A's pad slot: its letter byte 0xFF matches nothing
+constexpr uint32_t kNoKey = 0xffffffffu;  // a pad or dropped slot: its prefix field no search asks for
 constexpr uint32_t kDefault = 0xffffffffu;  // entry start of a slot that holds its default
-constexpr size_t kEncodeSmem = kCtx * kStride * (sizeof(uint64_t) + sizeof(uint32_t)) +
-                               kCtx * sizeof(int32_t);
+constexpr uint32_t kFull = 0xffffffffu;  // every lane of the warp
+constexpr size_t kEncodeSmem = kCtx * kStride * sizeof(uint32_t);
 constexpr size_t kDecodeSmem = kCtx * kStride * sizeof(uint64_t) + kCtx * sizeof(int32_t);
 
 template <bool kNybble>
@@ -96,24 +128,41 @@ struct Scheme {
   static constexpr int kSlots = kNybble ? 128 : 127;  // stored slots per context
   static constexpr int kMaxLen = kNybble ? 511 : 255;  // encoder match cap, in symbols
   static constexpr int kFirst = kNybble ? 2 : 1;  // symbols of the verbatim first byte
+  static constexpr int kLetterBits = kNybble ? 4 : 8;
   __device__ static int next_slot(int s) { return kNybble ? (s + 1) & 127 : (s + 1) % 127; }
-  // stored slot of index idx, or -1 when its gen is always 0 (a literal,
-  // a scheme-B default below 0x80, the -1 prefix)
-  __device__ static int slot_of(int idx) { return idx >= 0x80 ? idx - 0x80 : -1; }
+  // encoder key of (prefix index, letter): prefix 0..0xFE (scheme A) or
+  // 0x10..0xFF and 0x1FF, the -1 of the first word (scheme B)
+  __device__ static uint32_t key(uint32_t prefix, uint32_t letter) {
+    return (prefix << kLetterBits) | letter;
+  }
+  // the default key of stored slot s (scheme A: ' ' + (s ? s : 'x'), the
+  // pad slot 127 none; scheme B, slot 0x80 + s: its own two nybbles)
+  __device__ static uint32_t default_key(int s) {
+    if (kNybble) return key((s & 15) | 0x10, 8u + (s >> 4));
+    return s < kSlots ? key(' ', s ? s : 'x') : kNoKey;
+  }
 };
 
 __device__ __forceinline__ bool is_literal_nyb(int x) { return (x | 0xF) == 0x1F; }
 
-__device__ __forceinline__ uint64_t make_key(uint32_t pgen, int prefix, uint32_t letter) {
-  return (static_cast<uint64_t>(pgen) << 32) |
-         (static_cast<uint64_t>(static_cast<uint32_t>(prefix) & 0xFFFFu) << 8) | letter;
-}
-
 template <bool kNybble>
-__device__ __forceinline__ uint32_t symbol_at(const uint8_t* src, int64_t i) {
+__device__ __forceinline__ uint32_t symbol_at(const uint8_t* src, int i) {
   if (!kNybble) return __ldg(src + i);
   const uint32_t byte = __ldg(src + (i >> 1));
   return (i & 1) ? (byte >> 4) : (byte & 15u);
+}
+
+// The lane's four keys of a context, loaded where the source puts the
+// load: a volatile load with a memory clobber, so that the compiler
+// neither sinks it into the word-start branch, where its latency would
+// sit on the chain, nor hoists it above the stores before it.
+__device__ __forceinline__ uint4 load_keys(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p)))
+               : "memory");
+  return v;
 }
 
 template <bool kNybble>
@@ -123,9 +172,9 @@ small_encode_kernel(const uint8_t* __restrict__ blocks, int64_t S,
                     int32_t* __restrict__ totals, int32_t* __restrict__ status) {
   using Sc = Scheme<kNybble>;
   extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* keys = reinterpret_cast<uint64_t*>(smem);  // [kCtx][kStride]
-  uint32_t* gens = reinterpret_cast<uint32_t*>(keys + kCtx * kStride);  // [kCtx][kStride]
-  int32_t* nwi = reinterpret_cast<int32_t*>(gens + kCtx * kStride);  // [kCtx], stored slots
+  // keys[ctx * 32 + lane] = the keys of slots lane, lane + 32, lane + 64,
+  // lane + 96 of ctx; only that lane reads or writes them
+  uint4* keys = reinterpret_cast<uint4*>(smem);
   const int lane = threadIdx.x;
   const int b = blockIdx.x;
   const int64_t n = min(max(static_cast<int64_t>(lengths[b]), int64_t{0}), S);
@@ -156,87 +205,105 @@ small_encode_kernel(const uint8_t* __restrict__ blocks, int64_t S,
     }
     return;
   }
-  for (int i = lane; i < kCtx * kStride; i += 32) {
-    const int s = i % kStride;
-    uint64_t key = kNoKey;
-    if (kNybble) {  // stored slot s is slot 0x80 + s: default (s & 15 | 0x10, 8 + (s >> 4))
-      key = make_key(0, (s & 15) | 0x10, 8u + (s >> 4));
-    } else if (s < Sc::kSlots) {  // default ' ' + (s ? s : 'x')
-      key = make_key(0, ' ', s ? s : 'x');
-    }
-    keys[i] = key;
-    gens[i] = 0;
-  }
-  if (lane < kCtx) nwi[lane] = 0;
-  __syncwarp();
+  const uint4 init = make_uint4(Sc::default_key(lane), Sc::default_key(lane + 32),
+                                Sc::default_key(lane + 64), Sc::default_key(lane + 96));
+  for (int c = 0; c < kCtx; ++c) keys[c * 32 + lane] = init;
 
-  const int64_t N = kNybble ? 2 * n : n;  // symbols
-  int pctx = ' ' & 31;  // previous word: the verbatim first byte
-  int pidx = kNybble ? -1 : static_cast<int>(src0);
-  int64_t pos = Sc::kFirst;
-  int64_t o = 2;
-  int st = kOk;
-  while (pos < N) {
-    const uint32_t before = __ldg(src + (kNybble ? (pos >> 1) - 1 : pos - 1));
-    const uint32_t sym0 = symbol_at<kNybble>(src, pos);
-    if (!kNybble && ((sym0 | before) & 0x80u)) {
-      st = kInput;
-      break;
+  const int N = static_cast<int>(kNybble ? 2 * n : n);  // symbols (S < 2^28)
+  // The word in flight: its context (whose keys k holds), index and
+  // length; s is the next slot of its context (nwi[ctx]), banned the
+  // slot its search skips.  It starts as the verbatim first byte, in the
+  // context of ' ', with the length cap, so that step kFirst ends it:
+  // that step inserts it + symbol kFirst and starts the first word (its
+  // emission lands on dst[1], which gets the first byte again at the end).
+  int ctx = ' ' & 31;
+  uint4 kv = keys[ctx * 32 + lane];
+  uint32_t k0 = kv.x, k1 = kv.y, k2 = kv.z, k3 = kv.w;
+  uint32_t idx = kNybble ? 0x1FFu : src0;
+  int len = Sc::kMaxLen;
+  int s = 0;
+  // the index each of the lane's slots gives when it matches, ~0 for the
+  // banned slot (none yet): the search takes the least
+  const uint32_t own0 = 0x80u + lane, own1 = own0 + 32, own2 = own0 + 64, own3 = own0 + 96;
+  uint32_t g0 = own0, g1 = own1, g2 = own2, g3 = own3;
+  uint32_t nwi = 0;  // lane c: nwi[c] (stored slots; every context starts at its first)
+  // symbol i and the context byte of a word starting at i, read one ahead
+  // (past the end, the last symbol again: never used)
+  const int last = N - 1;
+  uint32_t c = symbol_at<kNybble>(src, min(Sc::kFirst, last));
+  uint32_t x = src0;  // scheme A: byte i - 1; scheme B: byte (i >> 1) - 1
+  // scheme A: the C refuses a block at the first word start whose byte or
+  // the byte before is >= 0x80; every byte >= 0x80 is one of those (no key
+  // has such a letter, so no word extends over it), so the loop only
+  // gathers the bytes' top bits and runs on
+  uint32_t high = src0;
+  int o = 1;
+#pragma unroll 2  // two steps a pass: no register copies of the read-ahead
+  for (int i = Sc::kFirst; i < N; ++i) {
+    const int ahead = min(i + 1, last);
+    const uint32_t c_next = symbol_at<kNybble>(src, ahead);
+    const uint32_t x_next = kNybble ? __ldg(src + (ahead >> 1) - 1) : c;
+    high |= c;
+    // what a word starting at i needs: the keys and next slot of its
+    // context, loaded before the search decides
+    const int nctx = x & 31;
+    const uint4 nk = load_keys(keys + nctx * 32 + lane);
+    const int ns = __shfl_sync(kFull, static_cast<int>(nwi), nctx);
+    // extend the word in flight with symbol i: the first slot whose key
+    // is the target, the banned slot aside
+    const uint32_t target = Sc::key(idx, c);
+    uint32_t w = __reduce_min_sync(  // the grown index, or ~0
+        kFull, min(min(k0 == target ? g0 : ~0u, k1 == target ? g1 : ~0u),
+                   min(k2 == target ? g2 : ~0u, k3 == target ? g3 : ~0u)));
+    if (kNybble && is_literal_nyb(idx)) {
+      const uint32_t d0 = (idx & 15u) | (c << 4);
+      if (d0 < 0x80u && !is_literal_nyb(d0)) w = d0;
     }
-    const int ctx = before & 31;
-    const int banned = ctx == pctx ? nwi[pctx] : -1;
-    uint32_t bmask[4];
-    uint64_t k[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      bmask[q] = (banned >> 5) == q ? ~(1u << (banned & 31)) : ~0u;
-      k[q] = keys[ctx * kStride + q * 32 + lane];
-    }
-    int idx = kNybble ? static_cast<int>(sym0 | 0x10u) : static_cast<int>(sym0);
-    int64_t len = 1;
-    uint32_t c = pos + 1 < N ? symbol_at<kNybble>(src, pos + 1) : 0;
-    while (pos + len < N && len < Sc::kMaxLen) {
-      const uint32_t cur = c;
-      if (pos + len + 1 < N) c = symbol_at<kNybble>(src, pos + len + 1);  // one ahead
-      int w = -1;  // slot number (scheme B: 0..0xFF; scheme A: 0..126)
-      if (kNybble && is_literal_nyb(idx)) {
-        const int d0 = (idx & 15) | static_cast<int>(cur << 4);
-        if (d0 < 0x80 && !is_literal_nyb(d0)) w = d0;
-      }
-      if (w < 0) {
-        const int ps = Sc::slot_of(idx);
-        const uint32_t want = ps >= 0 ? gens[ctx * kStride + ps] : 0u;
-        const uint64_t target = make_key(want, idx, cur);
-        int found = -1;
-#pragma unroll
-        for (int q = 3; q >= 0; --q) {
-          const uint32_t m = __ballot_sync(0xffffffffu, k[q] == target) & bmask[q];
-          if (m) found = q * 32 + __ffs(m) - 1;
-        }
-        if (found < 0) break;
-        w = kNybble ? found + 0x80 : found;
-      }
-      idx = kNybble ? w : 0x80 + w;
+    if (len < Sc::kMaxLen && w < 0x100u) {
+      idx = w;
       ++len;
+    } else {
+      // the word ends before symbol i: emit it, insert it + symbol i into
+      // ctx at slot s (the key that failed), drop the keys whose prefix is
+      // slot s; the lanes whose keys changed store them
+      if (lane == 0) dst[o] = static_cast<uint8_t>(idx);
+      ++o;
+      const uint32_t child = 0x80u + s;
+      const auto patch = [&](uint32_t v, int slot) {
+        return slot == s ? target : ((v >> Sc::kLetterBits) == child ? kNoKey : v);
+      };
+      const uint32_t p0 = patch(k0, lane), p1 = patch(k1, lane + 32), p2 = patch(k2, lane + 64),
+                     p3 = patch(k3, lane + 96);
+      if (p0 != k0 || p1 != k1 || p2 != k2 || p3 != k3)
+        keys[ctx * 32 + lane] = make_uint4(p0, p1, p2, p3);
+      const int s_next = s + 1 == Sc::kSlots ? 0 : s + 1;  // next_slot, without the division
+      if (lane == ctx) nwi = static_cast<uint32_t>(s_next);
+      // a word starts at i in nctx
+      const bool same = nctx == ctx;
+      k0 = same ? p0 : nk.x;
+      k1 = same ? p1 : nk.y;
+      k2 = same ? p2 : nk.z;
+      k3 = same ? p3 : nk.w;
+      // banned: slot s, when the contexts are the same
+      const uint32_t ban = same ? child : 0u;
+      g0 = own0 == ban ? ~0u : own0;
+      g1 = own1 == ban ? ~0u : own1;
+      g2 = own2 == ban ? ~0u : own2;
+      g3 = own3 == ban ? ~0u : own3;
+      s = same ? s_next : ns;
+      ctx = nctx;
+      idx = kNybble ? c | 0x10u : c;
+      len = 1;
     }
-    if (lane == 0) dst[o] = static_cast<uint8_t>(idx);
-    ++o;
-    // insert the previous word + this word's first symbol into pctx
-    const int s = nwi[pctx];
-    const int ps = Sc::slot_of(pidx);
-    const uint32_t g = gens[pctx * kStride + s] + 1;
-    const uint32_t pg = ps < 0 ? 0u : (ps == s ? g : gens[pctx * kStride + ps]);
-    __syncwarp();
-    if (lane == 0) {
-      gens[pctx * kStride + s] = g;
-      keys[pctx * kStride + s] = make_key(pg, pidx, sym0);
-      nwi[pctx] = Sc::next_slot(s);
-    }
-    __syncwarp();
-    pctx = ctx;
-    pidx = idx;
-    pos += len;
+    c = c_next;
+    x = x_next;
   }
+  const int st = !kNybble && (high & 0x80u) ? kInput : kOk;
+  if (lane == 0) {
+    dst[1] = static_cast<uint8_t>(src0);
+    if (st == kOk && N > Sc::kFirst) dst[o] = static_cast<uint8_t>(idx);  // the word in flight
+  }
+  o = N > Sc::kFirst ? o + 1 : 2;
   if (lane == 0) {
     totals[b] = st == kOk ? static_cast<int32_t>(o) : 0;
     status[b] = st;
@@ -386,17 +453,12 @@ small_decode_kernel(const uint8_t* __restrict__ flat, int64_t flat_len,
 }
 
 template <bool kNybble>
-cudaError_t launch_encode(const void* blocks, int64_t S, const void* lengths, void* rows,
-                          int64_t W, void* totals, void* status, int B, cudaStream_t stream) {
-  const cudaError_t rc = cudaFuncSetAttribute(small_encode_kernel<kNybble>,
-                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                              static_cast<int>(kEncodeSmem));
-  if (rc != cudaSuccess) return rc;
+void launch_encode(const void* blocks, int64_t S, const void* lengths, void* rows, int64_t W,
+                   void* totals, void* status, int B, cudaStream_t stream) {
   small_encode_kernel<kNybble><<<B, 32, kEncodeSmem, stream>>>(
       static_cast<const uint8_t*>(blocks), S, static_cast<const int32_t*>(lengths),
       static_cast<uint8_t*>(rows), W, static_cast<int32_t*>(totals),
       static_cast<int32_t*>(status));
-  return cudaSuccess;
 }
 
 template <bool kNybble>
@@ -418,10 +480,10 @@ extern "C" int dct_small_encode(int nybble, const void* blocks, long long S, con
                                 void* stream) {
   if (B > 0) {
     const auto s = static_cast<cudaStream_t>(stream);
-    const cudaError_t rc =
-        nybble ? launch_encode<true>(blocks, S, lengths, rows, W, totals, status, B, s)
-               : launch_encode<false>(blocks, S, lengths, rows, W, totals, status, B, s);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
+    if (nybble)
+      launch_encode<true>(blocks, S, lengths, rows, W, totals, status, B, s);
+    else
+      launch_encode<false>(blocks, S, lengths, rows, W, totals, status, B, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -438,4 +500,26 @@ extern "C" int dct_small_decode(int nybble, const void* flat, long long flat_len
       launch_decode<false>(flat, flat_len, offsets, plens, raw_lens, out, S, scratch, status, B, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of one lane kernel resident on an SM at once, by the occupancy
+// API at the launch's block size and shared memory; the blocks (lanes)
+// one CTA holds, its threads and its shared bytes (static + dynamic):
+// a launch of B blocks runs in ceil(B / (ctas x SMs x lanes)) waves.
+extern "C" int dct_small_occupancy(int decode, int nybble, void* ctas, void* lanes_per_cta,
+                                   void* threads, void* smem_bytes) {
+  const void* fn = decode ? (nybble ? reinterpret_cast<const void*>(small_decode_kernel<true>)
+                                    : reinterpret_cast<const void*>(small_decode_kernel<false>))
+                          : (nybble ? reinterpret_cast<const void*>(small_encode_kernel<true>)
+                                    : reinterpret_cast<const void*>(small_encode_kernel<false>));
+  const int block = decode ? 1 : 32;
+  const size_t dynamic = decode ? kDecodeSmem : kEncodeSmem;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *static_cast<int*>(lanes_per_cta) = 1;
+  *static_cast<int*>(threads) = block;
+  *static_cast<int*>(smem_bytes) = static_cast<int>(attr.sharedSizeBytes + dynamic);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(static_cast<int*>(ctas), fn, block, dynamic));
 }

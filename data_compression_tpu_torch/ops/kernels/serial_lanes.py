@@ -40,6 +40,8 @@ on any device and are on no path where a card is present.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from data_compression_tpu_torch.ops.kernels import _build
@@ -227,12 +229,39 @@ def _symbols(blocks, nybble):
     return torch.stack((src & 15, src >> 4), 2).reshape(src.shape[0], -1)
 
 
+def _run_steps(step, count: int, dev) -> None:
+    """Call ``step`` ``count`` times.  On a CUDA device the first call runs
+    on a side stream (the warm-up capture needs), then one call is
+    captured in a CUDA graph and replayed for the rest: the step's few
+    dozen launches go to the card as one.  ``step`` must keep its state
+    in place, the step number included, and read nothing back."""
+    if count <= 0:
+        return
+    if dev.type != "cuda" or count == 1:
+        for _ in range(count):
+            step()
+        return
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        step()
+    main.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):  # records the step; runs nothing
+        step()
+    for _ in range(count - 1):
+        graph.replay()
+
+
 def small_encode_ref(blocks, lengths, nybble: bool):
     """Plain version of ``_small_byte_encode_lane`` (``nybble`` False) or
     ``_small_nybble_encode_lane`` (True): one step per input symbol.  The
     dictionary is the JAX carry's prefix / letter / gen / prefix_gen /
     nwi; its starts and lengths are left out, as the search never reads
-    them (a slot holds a span exactly when its gen is above 0)."""
+    them (a slot holds a span exactly when its gen is above 0).  The step
+    updates its state, the step number included, in place (``_run_steps``:
+    a CUDA graph on the card)."""
     _check_encode(blocks, lengths)
     kind = "small_nybble" if nybble else "small_byte"
     B, S = blocks.shape
@@ -268,14 +297,16 @@ def small_encode_ref(blocks, lengths, nybble: bool):
         pidx = torch.full((B,), -1, dtype=torch.int64, device=dev) if nybble else src[:, 0].clone()
         # the word in flight starts at symbol `first`
         c0 = sym[:, min(first, sym.shape[1] - 1)]
-        index = c0 | 0x10 if nybble else c0
+        index = c0 | 0x10 if nybble else c0.clone()
         ctx_c = src[:, 0] & 31
         banned = torch.where(ctx_c == pctx, nwi[ar, pctx], -1)
         mstart = torch.full((B,), first, dtype=torch.int64, device=dev)
         mlen = torch.ones(B, dtype=torch.int64, device=dev)
-        for i in range(first + 1, sym.shape[1]):
+        i = torch.full((1,), first + 1, dtype=torch.int64, device=dev)  # the step's symbol
+
+        def step():
             active = i < N
-            c = sym[:, i]
+            c = sym.index_select(1, i)[:, 0]
             # extend the word with symbol c: the lowest slot holding it
             if nybble:
                 lit_idx = (index | 15) == 0x1F
@@ -292,7 +323,7 @@ def small_encode_ref(blocks, lengths, nybble: bool):
             emit = active & ~extend
             # a miss emits the word and inserts the previous word + its first symbol
             out[ar, torch.where(emit, o, W)] = index
-            o += emit
+            o.add_(emit)
             s = nwi[ar, pctx]
             g = gen[ar, pctx, s] + 1
             gen[ar, pctx, s] = torch.where(emit, g, gen[ar, pctx, s])
@@ -311,18 +342,21 @@ def small_encode_ref(blocks, lengths, nybble: bool):
             else:
                 nxt = (s + 1) % NS
             nwi[ar, pctx] = torch.where(emit, nxt, s)
-            pctx = torch.where(emit, ctx_c, pctx)
-            pidx = torch.where(emit, index, pidx)
+            pctx.copy_(torch.where(emit, ctx_c, pctx))
+            pidx.copy_(torch.where(emit, index, pidx))
             # a new word starts at symbol i; its context is the byte before it
-            new_ctx = src[:, (i >> 1) - 1 if nybble else i - 1] & 31
+            new_ctx = src.index_select(1, (i >> 1) - 1 if nybble else i - 1)[:, 0] & 31
             new_banned = torch.where(new_ctx == pctx, nwi[ar, pctx], -1)
-            banned = torch.where(emit, new_banned, banned)
-            ctx_c = torch.where(emit, new_ctx, ctx_c)
+            banned.copy_(torch.where(emit, new_banned, banned))
+            ctx_c.copy_(torch.where(emit, new_ctx, ctx_c))
             grown = w if nybble else 0x80 + w
-            index = torch.where(emit, (c | 0x10) if nybble else c,
-                                torch.where(extend, grown, index))
-            mstart = torch.where(emit, i, mstart)
-            mlen = torch.where(emit, 1, torch.where(extend, mlen + 1, mlen))
+            index.copy_(torch.where(emit, (c | 0x10) if nybble else c,
+                                    torch.where(extend, grown, index)))
+            mstart.copy_(torch.where(emit, i, mstart))
+            mlen.copy_(torch.where(emit, 1, torch.where(extend, mlen + 1, mlen)))
+            i.add_(1)
+
+        _run_steps(step, sym.shape[1] - (first + 1), dev)
         tail = N > first  # the word in flight
         out[ar, torch.where(tail, o, W)] = index
         o += tail
@@ -511,6 +545,39 @@ def small_nybble_encode(blocks, lengths):
 def small_nybble_decode(flat, offsets, plens, raw_lens, S):
     """Scheme-B decode lane (``small_decode_kernel<true>``) -> (out, status)."""
     return _decode(small_nybble_decode, "small_nybble", flat, offsets, plens, raw_lens, S)
+
+
+def layout_text(threads_per_cta: int, blocks_per_cta: int, smem_per_cta: int) -> str:
+    """A lane launch's block-to-thread mapping in words, from the numbers
+    ``lane_occupancy`` reads off the kernel."""
+    per_block = threads_per_cta // blocks_per_cta
+    who = "a warp" if per_block == 32 else "a thread" if per_block == 1 else f"{per_block} threads"
+    return (f"{who} a block, {blocks_per_cta} block(s) a CTA, "
+            f"{smem_per_cta:,} B of shared memory a CTA")
+
+
+def lane_occupancy(name: str) -> dict:
+    """The launch of lane kernel ``name`` on the current CUDA device:
+    CTAs resident on one SM at once (the occupancy API at the launch's
+    block size and shared memory), blocks a CTA, threads a CTA and shared
+    bytes a CTA (static + dynamic), all from the CUDA source, and
+    ``layout``, those in words.  A launch of B blocks runs in
+    ceil(B / (ctas_per_sm x SMs x blocks_per_cta)) waves."""
+    kind, direction = name.rsplit("_", 1)
+    if kind not in KINDS or direction not in ("encode", "decode"):
+        raise ValueError(f"no serial lane {name!r}")
+    ctas, per_cta, threads, smem = (ctypes.c_int(0) for _ in range(4))
+    out = [ctypes.byref(v) for v in (ctas, per_cta, threads, smem)]
+    decode = int(direction == "decode")
+    lib = _build.lib()
+    if kind == "nybble":
+        rc = lib.dct_nybble_occupancy(decode, *out)
+    else:
+        rc = lib.dct_small_occupancy(decode, int(kind == "small_nybble"), *out)
+    _build.check(rc, f"{name} occupancy")
+    return {"ctas_per_sm": ctas.value, "blocks_per_cta": per_cta.value,
+            "threads_per_cta": threads.value, "smem_per_cta": smem.value,
+            "layout": layout_text(threads.value, per_cta.value, smem.value)}
 
 
 ENCODERS = {"nybble": nybble_encode, "small_byte": small_byte_encode,

@@ -84,6 +84,25 @@ def complete_lengths(arity: int, max_len: int, n_symbols: int) -> np.ndarray:
     return row
 
 
+def long_small_blocks(size: int, seed: int) -> np.ndarray:
+    """[3, size] uint8 blocks for the small codecs' lanes at long block
+    sizes: one context only (bytes 0x01, 0x21, 0x41, 0x61, all & 31 == 1,
+    so every insert but the first goes into context 1, whose slots the
+    native encoders rewrite about size / 311 (scheme A) or size / 234
+    (scheme B) times each), text, and text ending in 50
+    copies of a sentence whose last byte, the 't' of "mat", has its top
+    bit set: the dictionary holds that word's child by 't', so a search
+    that folded letters to seven bits would extend the last word over the
+    byte, where scheme A must refuse the block."""
+    one = np.array([0x01, 0x21, 0x41, 0x61], np.uint8)[(_raw(seed, size) & 3).astype(np.intp)]
+    text = np.frombuffer(enwik_like(size, seed), np.uint8)
+    tail = np.frombuffer((b"the cat sat on the mat. " * 50)[:-2], np.uint8)
+    high = text.copy()
+    high[size - len(tail):] = tail
+    high[-1] |= 0x80
+    return np.stack([one, text, high])
+
+
 # the generators by name, as the golden record names them
 GENERATORS = {
     "enwik_like": enwik_like,

@@ -36,6 +36,7 @@ from data_compression_tpu_torch.tools import ablate, microbench, timing
 from data_compression_tpu_torch.utils.corpora import (
     GENERATORS,
     complete_lengths,
+    long_small_blocks,
     deep_code_block,
     enwik_like,
     printable_like,
@@ -1048,6 +1049,52 @@ def test_lane_kernels_at_64k_match_the_native_runtime(cuda, kind):
     got = psc.encode_payloads(kind, blocks, lengths, cuda)
     assert [got[i] for i in keep] == payloads
     assert psc.decode_payloads(kind, payloads, [len(r) for r in raws], cuda) == raws
+
+
+# Block sizes on both sides of the reach of a 16-bit generation counter
+# per slot (one write a word, 127 / 128 slots a context): the longest
+# block in which no slot can be written 65,536 times, and a longer one in
+# which the one-context block writes every slot of its context more than
+# 65,535 times.  The encoders keep no such counter: one kernel runs both.
+LONG_LANES = [("small_byte", 127 * 65535 + 1, False), ("small_byte", 24 << 20, True),
+              ("small_nybble", 64 * 65535 + 1, False), ("small_nybble", 16 << 20, True)]
+
+
+@pytest.mark.parametrize("kind,S,past", LONG_LANES)
+def test_small_lanes_on_long_blocks_match_the_native_runtime(cuda, kind, S, past):
+    blocks = long_small_blocks(S, 98)
+    lengths = np.full(3, S, np.int64)
+    keep, raws, payloads = _native_payloads(kind, blocks, lengths)
+    assert keep == ([0, 1] if kind == "small_byte" else [0, 1, 2])
+    rows, totals, status = lanes.ENCODERS[kind](torch.from_numpy(blocks).to(cuda),
+                                                torch.from_numpy(lengths).to(cuda))
+    assert status.cpu().tolist() == [lanes.OK if i in keep else lanes.INPUT for i in range(3)]
+    tot = totals.cpu().numpy()
+    assert [rows[i, : tot[i]].cpu().numpy().tobytes() for i in keep] == payloads
+    slots = 128 if kind == "small_nybble" else 127
+    writes = (len(payloads[0]) - 3) // slots  # words after the first, all into context 1
+    assert (writes > 65535) == past
+    out, st = lanes.DECODERS[kind](*_lane_flat(payloads, cuda),
+                                   torch.from_numpy(lengths[keep].astype(np.int32)).to(cuda), S)
+    assert st.cpu().tolist() == [lanes.OK] * len(keep)
+    out = out.cpu().numpy()
+    assert [out[k].tobytes() for k in range(len(keep))] == raws
+
+
+@pytest.mark.parametrize("kind", LANE_KINDS)
+@pytest.mark.parametrize("direction", ["encode", "decode"])
+def test_lane_occupancy_reads_the_launch(cuda, kind, direction):
+    """Each lane kernel's occupancy: at least one CTA an SM, whole blocks a
+    CTA; the small encoders hold every one of 1,026 blocks (64 MiB at 64
+    KiB and the two edge blocks) in one wave."""
+    occ = lanes.lane_occupancy(f"{kind}_{direction}")
+    assert occ["ctas_per_sm"] >= 1 and occ["blocks_per_cta"] >= 1
+    assert occ["threads_per_cta"] % occ["blocks_per_cta"] == 0 and occ["smem_per_cta"] > 0
+    assert occ["layout"] == lanes.layout_text(occ["threads_per_cta"], occ["blocks_per_cta"],
+                                              occ["smem_per_cta"])
+    if kind != "nybble" and direction == "encode":
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert occ["ctas_per_sm"] * occ["blocks_per_cta"] * sms >= 1026
 
 
 def _guarded(n, fill, dev):

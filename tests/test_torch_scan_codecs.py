@@ -20,7 +20,7 @@ from data_compression_tpu_torch.models import nybble as pnyb
 from data_compression_tpu_torch.models import small as psmall
 from data_compression_tpu_torch.ops import scan_codecs as psc
 from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
-from data_compression_tpu_torch.utils.corpora import enwik_like, printable_like
+from data_compression_tpu_torch.utils.corpora import enwik_like, long_small_blocks, printable_like
 from data_compression_tpu_torch.utils.debug import CodecStats
 from torch_cases import LANE_KINDS, lane_blocks
 
@@ -173,6 +173,42 @@ def test_lane_checks():
                             lanes.MAX_BLOCK + 1)
     assert psc.encode_payloads("nybble", np.zeros((0, 4), np.uint8), []) == []
     assert psc.decode_payloads("small_byte", [], []) == []
+
+
+@pytest.mark.parametrize("count", [0, 1, 5])
+def test_plain_steps_run_count_times_on_the_cpu(count):
+    """``_run_steps`` calls the step ``count`` times on the CPU (on a card
+    the first call, then graph replays)."""
+    calls = []
+    lanes._run_steps(lambda: calls.append(len(calls)), count, torch.device("cpu"))
+    assert calls == list(range(count))
+
+
+def test_every_lane_kernel_has_a_layout_and_an_occupancy_query():
+    """The layout's words come from the launch's numbers (the card test
+    reads those off each kernel); a name that is no lane is refused
+    before anything is built."""
+    assert lanes.layout_text(32, 1, 16384) == ("a warp a block, 1 block(s) a CTA, "
+                                               "16,384 B of shared memory a CTA")
+    assert lanes.layout_text(1, 1, 32896).startswith("a thread a block, 1 block(s) a CTA, 32,896 B")
+    assert lanes.layout_text(8, 8, 1024).startswith("a thread a block, 8 block(s) a CTA, 1,024 B")
+    for name in ("huffman_encode", "small_byte", "small_byte_rows"):
+        with pytest.raises(ValueError, match="no serial lane"):
+            lanes.lane_occupancy(name)
+
+
+@pytest.mark.parametrize("kind,S", [("small_byte", 24 << 20), ("small_nybble", 16 << 20)])
+def test_long_lane_blocks_write_a_slot_past_16_bits(kind, S):
+    """The card test's long blocks do what it says they do: by the native
+    encoder, the one-context block's words write every slot of context 1
+    more than 65,535 times, and scheme A refuses the block with the top
+    bit set on its last byte."""
+    blocks = long_small_blocks(S, 98)
+    words = len(getattr(native, f"{kind}_encode")(blocks[0].tobytes())) - 2
+    assert (words - 1) // (128 if kind == "small_nybble" else 127) > 65535
+    if kind == "small_byte":
+        with pytest.raises(ValueError):
+            native.small_byte_encode(blocks[2].tobytes())
 
 
 # ---- the codecs' routes ---------------------------------------------------
