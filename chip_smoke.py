@@ -66,7 +66,11 @@ script exits non-zero without a result line):
      bytes, and against its plain version, byte for byte, on the same
      blocks and payloads (the plain step loop run on the card once on
      the 1,024 blocks and the two edge blocks together, and timed; the
-     small encoders' step is one CUDA graph replay); the small encoders
+     small lanes' step is one CUDA graph replay); the small decoders also
+     against the native decoder on 256 payloads of 64 KiB blocks, crafted
+     (the deepest words, each span's source ending where it is written),
+     real with flipped bytes or cut short, and random, with equal
+     statuses and equal OK rows; the small encoders
      and decoders also against the native batch drivers on three 24 MiB
      (small_byte) or 16 MiB (small_nybble) blocks, one of which rewrites
      each slot of its context more than 65,535 times
@@ -143,8 +147,9 @@ version's ms at ``plain_shape``, ``hbm_bound_ms`` and
 ``chain_floor_ms`` with its steps, cycles a step and ``sm_mhz``, the
 higher of the two as ``bound_ms``, ``layout``, ``ctas_per_sm``,
 ``blocks_per_cta``, ``threads_per_cta``, ``smem_per_cta`` (read off the
-kernel, ``serial_lanes.lane_occupancy``) and ``waves``; the small encoders' ``long_block_*``:
-the long blocks' size, a slot's rewrites and the three statuses).  A time per call is the best of 3 trials
+kernel at the launch's block size, ``serial_lanes.lane_occupancy``) and ``waves``; the small
+encoders' ``long_block_*``: the long blocks' size, a slot's rewrites and the three statuses;
+the small decoders' ``random_payloads``: blocks, OK and FORMAT statuses of the payload mix).  A time per call is the best of 3 trials
 of back-to-back calls, each at least 0.05 s
 (``tools.timing.time_chain``), the lookup variants' the median of
 single launches with the input cold in L2 (``tools.timing.cold_ms``).
@@ -615,11 +620,16 @@ LANES = [
 # and offers (2), the two-level minimum (2), the warp's minimum
 # (`__reduce_min_sync`), the test and the next index (2) (scheme B: the
 # literal shortcut's select); no shared load.
-# small decode: the context, the entry load and its fields (scheme B:
-# the last-three-nybbles merge); the span copy's global load, which an
-# in-order thread waits on before its store, is left out of the floor.
+# small decode (read off the SASS; the span copy runs in another warp):
+# from one entry load to the next, scheme A the context's row offset by
+# shift and mask (2), the fixed row's select, the index's merge and the
+# address (the exit test, before the next lookup, is as long: the length
+# by shift and mask, the word's end, the compare, the branch); scheme B
+# the length (2), its test, the last three nybbles (4), the byte by
+# parity (4), the row offset, select, merge and address (4): 15 compiled;
+# it keeps the 14 it had, as a floor only goes down.
 LANE_CHAIN = {"nybble_encode": (1, 12), "nybble_decode": (1, 17),
-              "small_byte_encode": (0, 8), "small_byte_decode": (1, 8),
+              "small_byte_encode": (0, 8), "small_byte_decode": (1, 5),
               "small_nybble_encode": (0, 9), "small_nybble_decode": (1, 14)}
 SHARED_LOAD_CYCLES = 30  # H100 shared-memory load latency, about 30 cycles (assumed)
 INT_OP_CYCLES = 4  # a dependent integer operation, about 4 cycles (assumed)
@@ -757,6 +767,51 @@ def long_lane_check(kind: str, dev) -> dict:
             "long_block_status": status.cpu().tolist()}
 
 
+def small_decode_against_native(kind: str, dev) -> dict:
+    """The small decoder of ``kind`` against the native decoder on 256
+    payloads of 64 KiB blocks (``corpora.small_payload_mix``: crafted
+    streams of the deepest words, a real payload with flipped bytes or
+    cut short, random bodies); statuses must be equal and OK rows equal;
+    -> the counts."""
+    import numpy as np
+    import torch
+
+    from data_compression_tpu_torch import native
+    from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
+    from data_compression_tpu_torch.utils.corpora import enwik_like, small_payload_mix
+
+    S = LANE_EDGE_BYTES
+    real = getattr(native, f"{kind}_encode")(enwik_like(S, SEED))
+    payloads, raws = small_payload_mix(kind, S, 256, SEED, real)
+    plens = np.array([len(p) for p in payloads], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(plens)[:-1]]).astype(np.int64)
+    flat = np.frombuffer(b"".join(payloads), np.uint8).copy()
+    out, st = lanes.DECODERS[kind](
+        torch.from_numpy(flat).to(dev), torch.from_numpy(offsets).to(dev),
+        torch.from_numpy(plens.astype(np.int32)).to(dev),
+        torch.tensor(raws, dtype=torch.int32, device=dev), S)
+    out, st = out.cpu().numpy(), st.cpu().numpy()
+    ok = 0
+    for i, (p, n) in enumerate(zip(payloads, raws)):
+        try:
+            want = getattr(native, f"{kind}_decode")(p, n)
+        except ValueError:
+            want = None
+        if st[i] != (lanes.FORMAT if want is None else lanes.OK):
+            raise AssertionError(f"{kind} decode lane: status {st[i]} on payload {i}, "
+                                 f"native {'refuses' if want is None else 'decodes'} it")
+        if want is not None:
+            if out[i, :n].tobytes() != want:
+                raise AssertionError(f"{kind} decode lane differs from native on payload {i}")
+            ok += 1
+    if not 0 < ok < len(payloads):
+        raise AssertionError(f"{kind}: the payload mix gave {ok} OK blocks of {len(payloads)}")
+    log(f"lanes {kind}: decode of {len(payloads)} crafted, corrupted, cut and random payloads "
+        f"({S}-byte blocks) gives the native decoder's statuses ({ok} OK, "
+        f"{len(payloads) - ok} FORMAT) and its bytes on every OK block")
+    return {"blocks": len(payloads), "ok": ok, "format": len(payloads) - ok}
+
+
 def lane_phase(data: bytes, dev, card: str) -> dict:
     """Phase 8a: each lane kernel against the native batch drivers on the
     whole 64 MiB input, on 64 KiB of one byte value and on 64 KiB of
@@ -817,10 +872,12 @@ def lane_phase(data: bytes, dev, card: str) -> dict:
                 bound_ms=max(floor, hbm), bound_by="operations" if floor >= hbm else "bytes",
                 hbm_bound_ms=hbm, chain_floor_ms=floor, chain_steps=steps[direction],
                 chain_step_cycles=cycles, sm_mhz=clock / 1e3, library_ms=None)
-            occ = lanes.lane_occupancy(name)
+            occ = lanes.lane_occupancy(name, blocks.shape[1])
             ctas, per_cta = occ["ctas_per_sm"], occ["blocks_per_cta"]
             waves = -(-len(n) // (ctas * per_cta * sms))
             results[name].update(**occ, waves=waves, **(long if direction == "encode" else {}))
+            if direction == "decode" and kind != "nybble":
+                results[name]["random_payloads"] = small_decode_against_native(kind, dev)
             log(f"kernel {name}: 64 MiB {ms:.4f} ms (device {dms:.4f} ms); HBM bound "
                 f"{hbm:.4f} ms, serial-chain floor {floor:.4f} ms ({steps[direction]} steps x "
                 f"{cycles} cycles at {clock / 1e3:.0f} MHz), {ms / max(floor, hbm):.2f}x the "

@@ -58,9 +58,9 @@ SIGNATURES = {
     "dct_nybble_encode": [_P, _I64, _P, _P, _I64, _P, _P, _I, _P],
     "dct_nybble_decode": [_P, _I64, _P, _P, _P, _P, _I64, _P, _I, _P],
     "dct_small_encode": [_I, _P, _I64, _P, _P, _I64, _P, _P, _I, _P],
-    "dct_small_decode": [_I, _P, _I64, _P, _P, _P, _P, _I64, _P, _P, _I, _P],
+    "dct_small_decode": [_I, _P, _I64, _P, _P, _P, _P, _I64, _P, _I, _P],
     "dct_nybble_occupancy": [_I, _P, _P, _P, _P],
-    "dct_small_occupancy": [_I, _I, _P, _P, _P, _P],
+    "dct_small_occupancy": [_I, _I, _I64, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -28,8 +28,7 @@ anything.
 
 The wrappers launch the kernel for CUDA tensors (or raise) and take the
 plain version for CPU tensors; they read nothing back and allocate only
-their outputs (and small_nybble decode's [B, 2S] nybble scratch).  The
-plain versions ``nybble_encode_ref``, ``nybble_decode_ref``,
+their outputs.  The plain versions ``nybble_encode_ref``, ``nybble_decode_ref``,
 ``small_encode_ref`` and ``small_decode_ref`` are the JAX lanes written
 out: the ``vmap`` is the batch dimension, the ``scan`` a Python loop of
 steps on [B]-shaped int64 tensors on the inputs' device, the state the
@@ -44,10 +43,11 @@ import ctypes
 
 import torch
 
+from data_compression_tpu_torch.config import DEFAULT_BLOCK_SIZE
 from data_compression_tpu_torch.ops.kernels import _build
 
 OK, INPUT, CAPACITY, FORMAT = 0, 1, 2, 3
-MAX_BLOCK = 1 << 28  # longest block a lane takes (small decode entries: 32-bit starts)
+MAX_BLOCK = 1 << 28  # longest block a lane takes (small decode: 32-bit positions)
 NYBBLES_TYPE = 0xAF
 EIGHT_BIT_PRUNED = 8
 KINDS = ("nybble", "small_byte", "small_nybble")
@@ -229,29 +229,36 @@ def _symbols(blocks, nybble):
     return torch.stack((src & 15, src >> 4), 2).reshape(src.shape[0], -1)
 
 
-def _run_steps(step, count: int, dev) -> None:
-    """Call ``step`` ``count`` times.  On a CUDA device the first call runs
-    on a side stream (the warm-up capture needs), then one call is
-    captured in a CUDA graph and replayed for the rest: the step's few
-    dozen launches go to the card as one.  ``step`` must keep its state
-    in place, the step number included, and read nothing back."""
-    if count <= 0:
-        return
-    if dev.type != "cuda" or count == 1:
+class _Steps:
+    """``run(count)`` calls ``step`` ``count`` times.  On a CUDA device the
+    first call runs on a side stream (the warm-up capture needs), then one
+    call is captured in a CUDA graph, kept for later runs, and replayed: the
+    step's few dozen launches go to the card as one.  ``step`` must keep
+    its state in place, the step number included, and read nothing back."""
+
+    def __init__(self, step, dev):
+        self.step, self.dev, self.graph = step, dev, None
+
+    def run(self, count: int) -> None:
+        if count <= 0:
+            return
+        if self.dev.type != "cuda" or (count == 1 and self.graph is None):
+            for _ in range(count):
+                self.step()
+            return
+        if self.graph is None:
+            main = torch.cuda.current_stream(self.dev)
+            side = torch.cuda.Stream(self.dev)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self.step()
+            main.wait_stream(side)
+            count -= 1
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):  # records the step; runs nothing
+                self.step()
         for _ in range(count):
-            step()
-        return
-    main = torch.cuda.current_stream(dev)
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        step()
-    main.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):  # records the step; runs nothing
-        step()
-    for _ in range(count - 1):
-        graph.replay()
+            self.graph.replay()
 
 
 def small_encode_ref(blocks, lengths, nybble: bool):
@@ -260,7 +267,7 @@ def small_encode_ref(blocks, lengths, nybble: bool):
     dictionary is the JAX carry's prefix / letter / gen / prefix_gen /
     nwi; its starts and lengths are left out, as the search never reads
     them (a slot holds a span exactly when its gen is above 0).  The step
-    updates its state, the step number included, in place (``_run_steps``:
+    updates its state, the step number included, in place (``_Steps``:
     a CUDA graph on the card)."""
     _check_encode(blocks, lengths)
     kind = "small_nybble" if nybble else "small_byte"
@@ -356,7 +363,7 @@ def small_encode_ref(blocks, lengths, nybble: bool):
             mlen.copy_(torch.where(emit, 1, torch.where(extend, mlen + 1, mlen)))
             i.add_(1)
 
-        _run_steps(step, sym.shape[1] - (first + 1), dev)
+        _Steps(step, dev).run(sym.shape[1] - (first + 1))
         tail = N > first  # the word in flight
         out[ar, torch.where(tail, o, W)] = index
         o += tail
@@ -366,12 +373,20 @@ def small_encode_ref(blocks, lengths, nybble: bool):
     return out[:, :W].to(torch.uint8), totals, status
 
 
+WINDOW_STEPS = 64  # plain small decode: steps between two reads of the longest entry
+
+
 def small_decode_ref(flat, offsets, plens, raw_lens, S: int, nybble: bool):
     """Plain version of ``_small_byte_decode_lane`` (``nybble`` False) or
     ``_small_nybble_decode_lane`` (True): one step per payload index,
     with the native decoder's errors.  Spans are gathered then written:
     a span ends at most where its word is written (checked), so no copy
-    reads its own output."""
+    reads its own output.  The gather is K symbols wide, fixed for
+    WINDOW_STEPS steps: a word is at most the longest entry or the word
+    before it (M, read back once), and each step's insert adds at most
+    one symbol to that, so K = M + WINDOW_STEPS covers them; the steps
+    update their state in place and run as replays of one CUDA graph a K
+    on the card (``_Steps``)."""
     B = _check_decode(flat, offsets, plens, raw_lens, S)
     dev = flat.device
     NS, _, first = _small_scheme(nybble)
@@ -393,57 +408,74 @@ def small_decode_ref(flat, offsets, plens, raw_lens, S: int, nybble: bool):
         pctx = torch.full((B,), ord(" ") & 31, dtype=torch.int64, device=dev)
         ppos = torch.zeros(B, dtype=torch.int64, device=dev)
         plen = torch.full((B,), first, dtype=torch.int64, device=dev)
-        for i in range(2, pay.shape[1] - 3):
-            active = alive & (length < target) & (i < plens.long())
-            idx = pay[:, i]
-            if nybble:
-                done = length >> 1
-                last = buf[ar, (2 * done - 2).clamp(0)] | (buf[ar, (2 * done - 1).clamp(0)] << 4)
-                lit = (idx | 15) == 0x1F
-                slot = idx
-                no_slot = torch.zeros(B, dtype=torch.bool, device=dev)
-            else:
-                last = buf[ar, (length - 1).clamp(0)]
-                lit = idx < 0x80
-                slot = idx - 0x80
-                no_slot = ~lit & (slot >= NS)  # 0xFF
-            ctx = last & 31
-            st = starts[ar, ctx, slot.clamp(0, NS - 1)]
-            ln = lengths[ar, ctx, slot.clamp(0, NS - 1)]
-            default = ~lit & (st < 0)
-            span = ~lit & ~default
-            wl = torch.where(lit, 1, torch.where(default, 2, ln))
-            bad = active & (no_slot | (length + wl > target) | (span & (st + wl > length)))
-            status = torch.where(bad, FORMAT, status)
-            alive &= ~bad
-            act = active & ~bad
-            K = int(torch.where(act, wl, 0).max())  # 0: no lane active
-            if not K:
-                continue
+        pl = plens.long()
+        i = torch.full((1,), 2, dtype=torch.int64, device=dev)  # the step's payload index
+
+        def make_step(K):
             k = torch.arange(K, device=dev)
-            if nybble:
-                d0, d1 = idx & 15, idx >> 4
-            else:
-                d0 = torch.full_like(idx, ord(" "))
-                d1 = torch.where(slot == 0, ord("x"), slot)
-            lit_sym = (idx & 15) if nybble else idx
-            fixed = torch.where(lit[:, None], torch.where(k == 0, lit_sym[:, None], 0),
-                                torch.where(k == 0, d0[:, None], d1[:, None]))
-            copied = buf.gather(1, (st.clamp(0)[:, None] + k[None, :]).clamp(max=T))
-            word = torch.where(span[:, None], copied, fixed)
-            dest = torch.where(act[:, None] & (k[None, :] < wl[:, None]),
-                               length[:, None] + k[None, :], T)
-            buf.scatter_(1, dest, word)
-            # insert the previous word + this word's first symbol into pctx
-            s = nwi[ar, pctx]
-            starts[ar, pctx, s] = torch.where(act, ppos, starts[ar, pctx, s])
-            lengths[ar, pctx, s] = torch.where(act, plen + 1, lengths[ar, pctx, s])
-            nxt = torch.where(s + 1 >= 0x100, 0x80, s + 1) if nybble else (s + 1) % NS
-            nwi[ar, pctx] = torch.where(act, nxt, s)
-            pctx = torch.where(act, ctx, pctx)
-            ppos = torch.where(act, length, ppos)
-            plen = torch.where(act, wl, plen)
-            length = torch.where(act, length + wl, length)
+
+            def step():
+                active = alive & (length < target) & (i < pl)
+                idx = pay.index_select(1, i)[:, 0]
+                if nybble:
+                    done = length >> 1
+                    last = (buf[ar, (2 * done - 2).clamp(0)]
+                            | (buf[ar, (2 * done - 1).clamp(0)] << 4))
+                    lit = (idx | 15) == 0x1F
+                    slot = idx
+                    no_slot = torch.zeros(B, dtype=torch.bool, device=dev)
+                else:
+                    last = buf[ar, (length - 1).clamp(0)]
+                    lit = idx < 0x80
+                    slot = idx - 0x80
+                    no_slot = ~lit & (slot >= NS)  # 0xFF
+                ctx = last & 31
+                st = starts[ar, ctx, slot.clamp(0, NS - 1)]
+                ln = lengths[ar, ctx, slot.clamp(0, NS - 1)]
+                default = ~lit & (st < 0)
+                span = ~lit & ~default
+                wl = torch.where(lit, 1, torch.where(default, 2, ln))
+                bad = active & (no_slot | (length + wl > target) | (span & (st + wl > length)))
+                status.copy_(torch.where(bad, FORMAT, status))
+                alive.copy_(alive & ~bad)
+                act = active & ~bad
+                if nybble:
+                    d0, d1 = idx & 15, idx >> 4
+                else:
+                    d0 = torch.full_like(idx, ord(" "))
+                    d1 = torch.where(slot == 0, ord("x"), slot)
+                lit_sym = (idx & 15) if nybble else idx
+                fixed = torch.where(lit[:, None], torch.where(k == 0, lit_sym[:, None], 0),
+                                    torch.where(k == 0, d0[:, None], d1[:, None]))
+                copied = buf.gather(1, (st.clamp(0)[:, None] + k[None, :]).clamp(max=T))
+                word = torch.where(span[:, None], copied, fixed)
+                dest = torch.where(act[:, None] & (k[None, :] < wl[:, None]),
+                                   length[:, None] + k[None, :], T)
+                buf.scatter_(1, dest, word)
+                # insert the previous word + this word's first symbol into pctx
+                s = nwi[ar, pctx]
+                starts[ar, pctx, s] = torch.where(act, ppos, starts[ar, pctx, s])
+                lengths[ar, pctx, s] = torch.where(act, plen + 1, lengths[ar, pctx, s])
+                nxt = torch.where(s + 1 >= 0x100, 0x80, s + 1) if nybble else (s + 1) % NS
+                nwi[ar, pctx] = torch.where(act, nxt, s)
+                pctx.copy_(torch.where(act, ctx, pctx))
+                ppos.copy_(torch.where(act, length, ppos))
+                plen.copy_(torch.where(act, wl, plen))
+                length.copy_(torch.where(act, length + wl, length))
+                i.add_(1)
+
+            return step
+
+        runs = {}  # K -> _Steps
+        left = pay.shape[1] - 5  # payload indexes 2 .. P - 4
+        while left > 0:
+            g = min(WINDOW_STEPS, left)
+            M = int(torch.maximum(lengths.max(), plen.max()).clamp(min=2))
+            K = -(-(M + g) // 32) * 32
+            if K not in runs:
+                runs[K] = _Steps(make_step(K), dev)
+            runs[K].run(g)
+            left -= g
         short = alive & (length < target)  # payload ran out first
         status = torch.where(short, FORMAT, status)
     if nybble:
@@ -504,14 +536,10 @@ def _decode(wrapper, kind, flat, offsets, plens, raw_lens, S):
                                            plens.data_ptr(), raw_lens.data_ptr(), out.data_ptr(),
                                            S, status.data_ptr(), B, _build.stream_of(flat))
             else:
-                nybble = kind == "small_nybble"
-                scratch = torch.empty((B, 2 * S) if nybble else (0,), dtype=torch.uint8,
-                                      device=dev)
-                rc = lib.dct_small_decode(int(nybble), flat.data_ptr(), flat.numel(),
-                                          offsets.data_ptr(), plens.data_ptr(),
+                rc = lib.dct_small_decode(int(kind == "small_nybble"), flat.data_ptr(),
+                                          flat.numel(), offsets.data_ptr(), plens.data_ptr(),
                                           raw_lens.data_ptr(), out.data_ptr(), S,
-                                          scratch.data_ptr(), status.data_ptr(), B,
-                                          _build.stream_of(flat))
+                                          status.data_ptr(), B, _build.stream_of(flat))
         _build.check(rc, f"{kind} decode lane")
         wrapper.launches += 1
     return out, status
@@ -533,7 +561,7 @@ def small_byte_encode(blocks, lengths):
 
 
 def small_byte_decode(flat, offsets, plens, raw_lens, S):
-    """Scheme-A decode lane (``small_decode_kernel<false>``) -> (out, status)."""
+    """Scheme-A decode lane (``small_decode_kernel<false, *>``) -> (out, status)."""
     return _decode(small_byte_decode, "small_byte", flat, offsets, plens, raw_lens, S)
 
 
@@ -543,7 +571,7 @@ def small_nybble_encode(blocks, lengths):
 
 
 def small_nybble_decode(flat, offsets, plens, raw_lens, S):
-    """Scheme-B decode lane (``small_decode_kernel<true>``) -> (out, status)."""
+    """Scheme-B decode lane (``small_decode_kernel<true, *>``) -> (out, status)."""
     return _decode(small_nybble_decode, "small_nybble", flat, offsets, plens, raw_lens, S)
 
 
@@ -551,13 +579,15 @@ def layout_text(threads_per_cta: int, blocks_per_cta: int, smem_per_cta: int) ->
     """A lane launch's block-to-thread mapping in words, from the numbers
     ``lane_occupancy`` reads off the kernel."""
     per_block = threads_per_cta // blocks_per_cta
-    who = "a warp" if per_block == 32 else "a thread" if per_block == 1 else f"{per_block} threads"
+    who = ("a warp" if per_block == 32 else "a thread" if per_block == 1
+           else f"{per_block // 32} warps" if per_block % 32 == 0 else f"{per_block} threads")
     return (f"{who} a block, {blocks_per_cta} block(s) a CTA, "
             f"{smem_per_cta:,} B of shared memory a CTA")
 
 
-def lane_occupancy(name: str) -> dict:
-    """The launch of lane kernel ``name`` on the current CUDA device:
+def lane_occupancy(name: str, S: int = DEFAULT_BLOCK_SIZE) -> dict:
+    """The launch of lane kernel ``name`` for blocks of ``S`` bytes on the
+    current CUDA device (S picks a small decoder's dictionary layout):
     CTAs resident on one SM at once (the occupancy API at the launch's
     block size and shared memory), blocks a CTA, threads a CTA and shared
     bytes a CTA (static + dynamic), all from the CUDA source, and
@@ -573,7 +603,7 @@ def lane_occupancy(name: str) -> dict:
     if kind == "nybble":
         rc = lib.dct_nybble_occupancy(decode, *out)
     else:
-        rc = lib.dct_small_occupancy(decode, int(kind == "small_nybble"), *out)
+        rc = lib.dct_small_occupancy(decode, int(kind == "small_nybble"), S, *out)
     _build.check(rc, f"{name} occupancy")
     return {"ctas_per_sm": ctas.value, "blocks_per_cta": per_cta.value,
             "threads_per_cta": threads.value, "smem_per_cta": smem.value,

@@ -103,6 +103,63 @@ def long_small_blocks(size: int, seed: int) -> np.ndarray:
     return np.stack([one, text, high])
 
 
+def tight_span_payload(kind: str, S: int, seed: int) -> tuple:
+    """(payload, raw length) of a crafted small_byte / small_nybble stream
+    of the deepest words, each span's source ending exactly where the
+    span is written.  Every symbol keeps one context (scheme A: bytes
+    0x01, '!', 'A', 'a' at random, all & 31 == 1; scheme B: the nybble
+    1), so the step-j insert lands in slot j - 2 of that context;
+    literals and spans alternate, each span the entry the literal before
+    it made (the span before + that literal), so the spans run 2, 3, 4,
+    ... symbols long (past the encoders' match caps) until the block's
+    S bytes are full; the raw length ends the last word."""
+    nybble = kind == "small_nybble"
+    rng = np.random.default_rng(seed)
+    slots, first, N = (128, 2, 2 * S) if nybble else (127, 1, S)
+
+    def literal():
+        return 0x11 if nybble else int(rng.choice([0x01, 0x21, 0x41, 0x61]))
+
+    idx = [literal(), literal()]
+    total, step, span = first + 2, 2, 2
+    while total + span + 1 <= N - 1:
+        idx += [0x80 + (step - 2) % slots, literal()]
+        total, step, span = total + span + 1, step + 2, span + 1
+    if nybble and total % 2:
+        idx.append(literal())
+        total += 1
+    return bytes([8, 0x11 if nybble else 0x61] + idx), total // 2 if nybble else total
+
+
+def small_payload_mix(kind: str, S: int, count: int, seed: int, real: bytes) -> tuple:
+    """([payload], [raw length]) for the small decoders on S-byte blocks,
+    four kinds in turn: crafted streams of the deepest words
+    (``tight_span_payload``, some cut one or two symbols short), the real
+    payload ``real`` of S bytes with 1-4 bytes flipped, the same cut
+    short, and random bodies behind the type byte (small_byte's 0xFF,
+    which the native decoder reads past its table, left out)."""
+    rng = np.random.default_rng(seed)
+    top = 255 if kind == "small_byte" else 256
+    payloads, raws = [], []
+    for k in range(count):
+        if k % 4 == 0:
+            p, n = tight_span_payload(kind, S, k)
+            n -= k % 3
+        elif k % 4 == 1:
+            b = bytearray(real)
+            for j in rng.integers(2, len(b), int(rng.integers(1, 5))):
+                b[j] = int(rng.integers(0, top))
+            p, n = bytes(b), S
+        elif k % 4 == 2:
+            p, n = real[: int(rng.integers(0, len(real)))], S
+        else:
+            p = bytes([8]) + rng.integers(0, top, int(rng.integers(0, S + S // 8)), np.uint8).tobytes()
+            n = int(rng.integers(1, S + 1))
+        payloads.append(p)
+        raws.append(n)
+    return payloads, raws
+
+
 # the generators by name, as the golden record names them
 GENERATORS = {
     "enwik_like": enwik_like,

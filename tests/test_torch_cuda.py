@@ -40,10 +40,18 @@ from data_compression_tpu_torch.utils.corpora import (
     deep_code_block,
     enwik_like,
     printable_like,
+    small_payload_mix,
+    tight_span_payload,
 )
 from data_compression_tpu_torch.ops import scan_codecs as psc
 from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
-from torch_cases import LANE_KINDS, decode_table_rows, hist_blocks, lane_blocks
+from torch_cases import (
+    LANE_KINDS,
+    decode_table_rows,
+    hist_blocks,
+    lane_blocks,
+    small_decoded_as_native,
+)
 
 pytestmark = pytest.mark.cuda
 ARITIES = [2, 16, 3]
@@ -1085,14 +1093,14 @@ def test_small_lanes_on_long_blocks_match_the_native_runtime(cuda, kind, S, past
 @pytest.mark.parametrize("direction", ["encode", "decode"])
 def test_lane_occupancy_reads_the_launch(cuda, kind, direction):
     """Each lane kernel's occupancy: at least one CTA an SM, whole blocks a
-    CTA; the small encoders hold every one of 1,026 blocks (64 MiB at 64
-    KiB and the two edge blocks) in one wave."""
+    CTA; the small encoders and decoders hold every one of 1,026 blocks
+    (64 MiB at 64 KiB and the two edge blocks) in one wave."""
     occ = lanes.lane_occupancy(f"{kind}_{direction}")
     assert occ["ctas_per_sm"] >= 1 and occ["blocks_per_cta"] >= 1
     assert occ["threads_per_cta"] % occ["blocks_per_cta"] == 0 and occ["smem_per_cta"] > 0
     assert occ["layout"] == lanes.layout_text(occ["threads_per_cta"], occ["blocks_per_cta"],
                                               occ["smem_per_cta"])
-    if kind != "nybble" and direction == "encode":
+    if kind != "nybble":
         sms = torch.cuda.get_device_properties(cuda).multi_processor_count
         assert occ["ctas_per_sm"] * occ["blocks_per_cta"] * sms >= 1026
 
@@ -1153,16 +1161,21 @@ def _random_payloads(kind, B, seed):
 
 @pytest.mark.parametrize("kind", LANE_KINDS)
 def test_lane_decoders_keep_to_their_rows(cuda, kind):
-    """Random payload bytes (and real ones): between guard fills 0x00 and
-    0xFF around the payloads, the output rows and the nybble scratch, the
-    status and every decoded row come out the same, as the plain
-    version's, and no guard byte changes."""
+    """Random payload bytes (and real ones; for the small decoders also
+    crafted spans whose sources end where they are written, filling the
+    row): between guard fills 0x00 and 0xFF around the payloads and the
+    output rows, the status and every decoded row come out the same, as
+    the plain version's, and no guard byte changes."""
     S = 4096
     blocks, lengths = lane_blocks(kind, S, 95)
     _, raws, real = _native_payloads(kind, blocks, lengths)
     payloads, raw = _random_payloads(kind, 54, 96)
     payloads += real
     raw = np.concatenate([raw, [len(r) for r in raws]]).astype(np.int32)
+    if kind != "nybble":
+        crafted = [tight_span_payload(kind, S, seed) for seed in (0, 1)]
+        payloads += [p for p, _ in crafted]
+        raw = np.concatenate([raw, [n for _, n in crafted]]).astype(np.int32)
     B = len(payloads)
     flat_c, offs, plens = _lane_flat(payloads, "cpu")
     raw_c = torch.from_numpy(raw)
@@ -1173,7 +1186,6 @@ def test_lane_decoders_keep_to_their_rows(cuda, kind):
         flat_canvas, flat = _guarded(flat_c.numel(), fill, cuda)
         flat.copy_(flat_c)
         out_canvas, out = _guarded(B * S, fill, cuda)
-        scratch_canvas, scratch = _guarded(B * 2 * S, fill, cuda)
         status = torch.empty(B, dtype=torch.int32, device=cuda)
         lib = _build.lib()
         dev_offs, dev_plens, dev_raw = offs.to(cuda), plens.to(cuda), raw_c.to(cuda)
@@ -1184,11 +1196,10 @@ def test_lane_decoders_keep_to_their_rows(cuda, kind):
                                        _build.stream_of(flat))
         else:
             rc = lib.dct_small_decode(int(kind == "small_nybble"), *common, out.data_ptr(), S,
-                                      scratch.data_ptr(), status.data_ptr(), B,
-                                      _build.stream_of(flat))
+                                      status.data_ptr(), B, _build.stream_of(flat))
         _build.check(rc, "decode lane")
         torch.cuda.synchronize()
-        for canvas in (flat_canvas, out_canvas, scratch_canvas):
+        for canvas in (flat_canvas, out_canvas):
             assert _guards_intact(canvas, fill)
         assert torch.equal(status.cpu(), want_st)
         out = out.view(B, S).cpu()
@@ -1198,6 +1209,57 @@ def test_lane_decoders_keep_to_their_rows(cuda, kind):
                 assert torch.equal(out[i, : raw[i]], want_out[i, : raw[i]]), i
         seen.append(rows)
     assert all(torch.equal(a, b) for a, b in zip(*seen))
+
+
+def _small_decode_against_native(kind, payloads, raws, S, dev):
+    """The small decoder of ``kind`` on ``payloads`` against the native
+    decoder block by block: equal statuses, equal OK rows; -> OK blocks."""
+    out, st = lanes.DECODERS[kind](*_lane_flat(payloads, dev),
+                                   torch.tensor(raws, dtype=torch.int32, device=dev), S)
+    return small_decoded_as_native(kind, payloads, raws, out, st)
+
+
+SMALL_KINDS = ("small_byte", "small_nybble")
+# the small decoders' narrow dictionary layout holds blocks of up to 2^19
+# symbols (csrc/small_lanes.cu kNarrowSymbols); longer ones take the wide
+NARROW_MAX = {"small_byte": 1 << 19, "small_nybble": 1 << 18}
+
+
+@pytest.mark.parametrize("kind", SMALL_KINDS)
+def test_small_decode_lanes_match_the_native_runtime_on_crafted_and_random_payloads(cuda, kind):
+    """64 KiB rows of ``corpora.small_payload_mix``: crafted streams of
+    the deepest words (spans whose sources end exactly where they are
+    written, up to 361 / 511 symbols, sources inside the copier's round
+    of 32), the same cut one or two symbols short, real payloads with
+    flipped bytes or cut short, and random bodies: statuses and OK rows
+    equal the native decoder's."""
+    S = 65536
+    real = getattr(native, f"{kind}_encode")(enwik_like(S, 98))
+    payloads, raws = small_payload_mix(kind, S, 48, 99, real)
+    assert 0 < _small_decode_against_native(kind, payloads, raws, S, cuda) < len(payloads)
+
+
+@pytest.mark.parametrize("kind", SMALL_KINDS)
+@pytest.mark.parametrize("past", [False, True])
+def test_small_decode_lanes_on_both_sides_of_the_narrow_bound(cuda, kind, past):
+    """Blocks of the narrow layout's largest size (6-byte dictionary
+    slots) and one byte more (the wide layout, 8 bytes a slot): crafted
+    deepest words, whose entries reach 1,023 symbols and start near the
+    block's end, text and one byte value equal the native decoder's; the
+    occupancy query reads the layout the launch takes."""
+    S = NARROW_MAX[kind] + past
+    payloads, raws = [], []
+    for seed in (0, 1):
+        p, n = tight_span_payload(kind, S, seed)
+        payloads.append(p)
+        raws.append(n)
+    for raw in (enwik_like(S, 97), b"a" * S):
+        payloads.append(getattr(native, f"{kind}_encode")(raw))
+        raws.append(len(raw))
+    assert _small_decode_against_native(kind, payloads, raws, S, cuda) == len(payloads)
+    narrow = lanes.lane_occupancy(f"{kind}_decode", S - past)
+    this = lanes.lane_occupancy(f"{kind}_decode", S)
+    assert (this["smem_per_cta"] > narrow["smem_per_cta"]) == past
 
 
 @pytest.mark.parametrize("kind", LANE_KINDS)

@@ -20,9 +20,15 @@ from data_compression_tpu_torch.models import nybble as pnyb
 from data_compression_tpu_torch.models import small as psmall
 from data_compression_tpu_torch.ops import scan_codecs as psc
 from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
-from data_compression_tpu_torch.utils.corpora import enwik_like, long_small_blocks, printable_like
+from data_compression_tpu_torch.utils.corpora import (
+    enwik_like,
+    long_small_blocks,
+    printable_like,
+    small_payload_mix,
+    tight_span_payload,
+)
 from data_compression_tpu_torch.utils.debug import CodecStats
-from torch_cases import LANE_KINDS, lane_blocks
+from torch_cases import LANE_KINDS, lane_blocks, small_decoded_as_native
 
 # block sizes: the slot-wrap rows of tests/test_small.py (5000 bytes of
 # 1-23 for small_byte, 4000 of 1-15 for small_nybble)
@@ -155,6 +161,30 @@ def test_random_payloads_decode_as_the_native_runtime_does(kind):
     assert {int(s) for s in status} == {lanes.OK, lanes.FORMAT}
 
 
+@pytest.mark.parametrize("kind", ["small_byte", "small_nybble"])
+def test_plain_small_decoders_on_the_deepest_words(kind):
+    """Crafted streams whose spans grow one symbol every two steps, each
+    source ending exactly where its span is written
+    (``tight_span_payload``), and the same cut two symbols short: the
+    plain decode lane, whose gather window is fixed for WINDOW_STEPS
+    steps at a time, gives the native decoder's bytes and statuses, and
+    the JAX lane's bytes."""
+    S = 3000
+    crafted = [tight_span_payload(kind, S, seed) for seed in (0, 1)]
+    payloads = [p for p, _ in crafted] * 2
+    raws = [n for _, n in crafted] + [n - 2 for _, n in crafted]
+    out, status = lanes.DECODERS[kind](*_flat(payloads), torch.tensor(raws, dtype=torch.int32), S)
+    assert status.tolist() == [lanes.OK, lanes.OK, lanes.FORMAT, lanes.FORMAT]
+    want = [getattr(native, f"{kind}_decode")(p, n) for p, n in crafted]
+    assert [out[i, :n].numpy().tobytes() for i, (_, n) in enumerate(crafted)] == want
+    assert getattr(jsc, f"{kind}_decode_blocks")(payloads[:2], raws[:2]) == want
+    # the card tests' mix of crafted, corrupted, cut and random payloads
+    real = getattr(native, f"{kind}_encode")(enwik_like(S, 85))
+    payloads, raws = small_payload_mix(kind, S, 8, 86, real)
+    out, status = lanes.DECODERS[kind](*_flat(payloads), torch.tensor(raws, dtype=torch.int32), S)
+    small_decoded_as_native(kind, payloads, raws, out, status)
+
+
 def test_lane_checks():
     assert [lanes.row_width(k, 4096) for k in LANE_KINDS] == [4098, 4097, 8192]
     assert [lanes.row_width(k, 0) for k in LANE_KINDS] == [1, 1, 1]
@@ -177,11 +207,14 @@ def test_lane_checks():
 
 @pytest.mark.parametrize("count", [0, 1, 5])
 def test_plain_steps_run_count_times_on_the_cpu(count):
-    """``_run_steps`` calls the step ``count`` times on the CPU (on a card
-    the first call, then graph replays)."""
+    """``_Steps.run`` calls the step ``count`` times on the CPU (on a card
+    the first call, then graph replays), and again on a second run."""
     calls = []
-    lanes._run_steps(lambda: calls.append(len(calls)), count, torch.device("cpu"))
+    steps = lanes._Steps(lambda: calls.append(len(calls)), torch.device("cpu"))
+    steps.run(count)
     assert calls == list(range(count))
+    steps.run(2)
+    assert calls == list(range(count + 2))
 
 
 def test_every_lane_kernel_has_a_layout_and_an_occupancy_query():
@@ -192,6 +225,7 @@ def test_every_lane_kernel_has_a_layout_and_an_occupancy_query():
                                                "16,384 B of shared memory a CTA")
     assert lanes.layout_text(1, 1, 32896).startswith("a thread a block, 1 block(s) a CTA, 32,896 B")
     assert lanes.layout_text(8, 8, 1024).startswith("a thread a block, 8 block(s) a CTA, 1,024 B")
+    assert lanes.layout_text(64, 1, 27696).startswith("2 warps a block, 1 block(s) a CTA, 27,696 B")
     for name in ("huffman_encode", "small_byte", "small_byte_rows"):
         with pytest.raises(ValueError, match="no serial lane"):
             lanes.lane_occupancy(name)

@@ -1,5 +1,5 @@
-"""Inputs shared by the port's CPU and card tests (no JAX here: the card
-tests import this module on a machine without it)."""
+"""Inputs and checks shared by the port's CPU and card tests (no JAX
+here: the card tests import this module on a machine without it)."""
 
 import numpy as np
 
@@ -110,3 +110,24 @@ def lane_blocks(kind, S, seed, B=None):
         blocks[i, : len(r)] = np.frombuffer(r, np.uint8)
         lengths[i] = len(r)
     return blocks, lengths
+
+
+def small_decoded_as_native(kind, payloads, raws, out, status):
+    """A small decoder's ``out`` rows and ``status`` (one a payload)
+    against the native decoder block by block: FORMAT where the native
+    decoder raises, else OK and its bytes; -> the number of OK blocks."""
+    from data_compression_tpu_torch import native
+    from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
+
+    out, status = out.cpu().numpy(), status.cpu().tolist()
+    ok = 0
+    for i, (p, n) in enumerate(zip(payloads, raws)):
+        try:
+            want = getattr(native, f"{kind}_decode")(p, n)
+        except ValueError:
+            want = None
+        assert status[i] == (lanes.FORMAT if want is None else lanes.OK), i
+        if want is not None:
+            assert out[i, :n].tobytes() == want, i
+            ok += 1
+    return ok
