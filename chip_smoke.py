@@ -769,7 +769,7 @@ def long_lane_check(kind: str, dev) -> dict:
 
 def small_decode_against_native(kind: str, dev) -> dict:
     """The small decoder of ``kind`` against the native decoder on 256
-    payloads of 64 KiB blocks (``corpora.small_payload_mix``: crafted
+    payloads of 64 KiB blocks (``corpora.payload_mix``: crafted
     streams of the deepest words, a real payload with flipped bytes or
     cut short, random bodies); statuses must be equal and OK rows equal;
     -> the counts."""
@@ -778,11 +778,11 @@ def small_decode_against_native(kind: str, dev) -> dict:
 
     from data_compression_tpu_torch import native
     from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
-    from data_compression_tpu_torch.utils.corpora import enwik_like, small_payload_mix
+    from data_compression_tpu_torch.utils.corpora import enwik_like, payload_mix
 
     S = LANE_EDGE_BYTES
     real = getattr(native, f"{kind}_encode")(enwik_like(S, SEED))
-    payloads, raws = small_payload_mix(kind, S, 256, SEED, real)
+    payloads, raws = payload_mix(kind, S, 256, SEED, real)
     plens = np.array([len(p) for p in payloads], np.int64)
     offsets = np.concatenate([[0], np.cumsum(plens)[:-1]]).astype(np.int64)
     flat = np.frombuffer(b"".join(payloads), np.uint8).copy()

@@ -1,195 +1,437 @@
-// Nybble MTF codec lanes, one block per lane: encode [B, S] uint8 blocks
-// into payload rows [B, W] with their totals, and decode payloads (one
-// flat buffer, per-block offsets) into [B, S] rows.
+// Nybble MTF codec lanes: encode [B, S] uint8 blocks into payload rows
+// [B, W] with their totals, and decode payloads (one flat buffer,
+// per-block offsets) into [B, S] rows.
 //
 // Replaces data_compression_tpu/ops/scan_codecs.py `_encode_lane` (:47,
 // batch :154, driver :165) and `_decode_lane` (:115, :159, :720): one
 // `lax.scan` step per byte, `vmap`ped across blocks.  They reach no
 // Pallas kernel.  The lanes compute what native/libdctpu.c
-// `dct_nybble_encode` / `dct_nybble_decode` (:137-209) compute, byte for
+// `dct_nybble_encode` / `dct_nybble_decode` (:137-205) compute, byte for
 // byte, errors included.
 //
-// What bounds it on the card: the serial chain of one lane, not bytes.
-// Each byte's context is the previous byte (bits 3-6), and the 8-byte
-// move-to-front row of that context is read and rewritten before the
-// next byte can look at it: 65,536 dependent steps for a 64 KiB block,
-// whatever the card's bandwidth (64 MiB in and out moves in 0.04 ms).
-// Design:
-//   * one thread per block, 8 blocks to a CTA, so 1,024 blocks are 128
-//     CTAs on 128 of the 132 SMs, every lane resident at once: the lanes
-//     of a warp read and write 8 rows, not 32, so each memory
-//     instruction costs the SM's load-store unit 8 line lookups, not 32
-//     (32 blocks to a CTA: encode 1.09x and decode 1.46x slower at 64
-//     MiB, PERF.md section 6);
-//   * the lane's 16 x 8-byte table lives in shared memory, laid out
-//     [context][lane] so the lanes reading one context hit distinct
-//     8-byte words; a step reads its row as one 64-bit load, finds the
-//     byte by a byte-wise compare of both halves (`__vcmpeq4`), and
-//     writes the move-to-front row back as a masked 64-bit shift
-//     (funnel shifts): load, compare, find-first, shift, store, about
-//     30-40 dependent cycles;
-//   * the step's input is loaded one step ahead (encode) or held as a
-//     three-byte window that advances by at most one byte a step
-//     (decode), so no global load sits on the chain;
-//   * emissions are predicated byte stores into the lane's own row, so
-//     hit and miss lanes of a warp do not diverge.
-// Bounds: the encoder checks up front that its row holds the worst case
-// (n + 2 bytes) and writes nothing past it; the decoder reads only
-// inside its block's payload (offset, length) and writes only inside
-// its output row.  Status per block: 0 ok, 1 a byte >= 0x80 (encode),
-// 2 row too small (encode), 3 bad or truncated payload (decode).
+// What bounds it on the card: serial chains, not bytes (64 MiB in and out
+// moves in 0.04 ms).  Each byte's context is the previous byte (bits
+// 3-6), and the 8-byte move-to-front row of that context is read and
+// rewritten before the next byte of the same context can look at it.
+//
+// Encode: one warp a block, in tiles of kEncTile bytes.  The context of
+// step i is the input byte i - 1, so a block is 16 independent chains,
+// one per context; only they are serial.
+//   * bucket: the warp counts each row of 32 steps by context (four
+//     ballots of the context's bits) and scatters (tile index, byte) into
+//     the context's bucket, in order;
+//   * walk: lane c < 16 walks context c's bucket with the row in two
+//     registers: the byte's match word by XOR with its splat and a
+//     zero-byte test, the move-to-front as a masked merge of the row with
+//     the row shifted one byte (two `__byte_perm`), about 7 dependent
+//     integer operations a step and no shared load or store on the chain;
+//     it writes each step's (hit, pos) code at the step's tile index;
+//   * emit: warp-parallel again, a row of 32 steps at a time.  Whether a
+//     compressed nybble is pending before step i (`half`) follows hits
+//     and misses only: a miss clears it, a hit flips it, so it is the
+//     parity of the hits since the last miss (or since the row's start,
+//     after the carried state); a step's bytes (0, 1 or 2) and their
+//     offsets come from two ballots and popcounts, and the stores of a
+//     row are contiguous.
+// Shared memory: the tile, its buckets and codes, 24 KiB a CTA, so the
+// 1,026 blocks of a 64 MiB call run in one wave (9 CTAs an SM).  The
+// rows carry across tiles in registers; no count is narrow, whatever S.
+//
+// Decode: the context of step k is the byte decoded at step k - 1, so a
+// block is one chain.  What a step reads off the payload does not depend
+// on the chain: nybble j + 1 starts a token if j started a packed one or
+// was a literal's second half, a two-state automaton.  kDecBlocks blocks
+// a warp, in tiles of the payload body:
+//   * parse: the warp stages the tile's body in shared memory (and the
+//     byte after it), composes the automaton's per-byte functions by a
+//     warp scan, and writes one record a step: 0x80 | pos for a packed
+//     token, the 7-bit literal for a literal.  A token that would read
+//     past the body (a literal on the body's last nybble) is not
+//     recorded, and a block whose records run out before its raw length
+//     is FORMAT, as the C returns at that step;
+//   * chain: lane g walks block g's records at addresses that do not
+//     depend on its state, without a branch: the row of the context
+//     (one shared load at (prev & 0x78), the row just written forwarded
+//     if the context repeats), the byte by `__byte_perm` or the literal,
+//     the same move-to-front as the encoder; each byte goes back over its
+//     record;
+//   * flush: the warp copies the tile's bytes to the output row.
+// Bounds: the encoder checks up front that its row holds n + 2 bytes (the
+// C's per-step check; a step emits two bytes only after one that emitted
+// none, so a payload takes at most n + 1) and writes nothing past it,
+// whatever its codes; the decoder reads only
+// inside its block's payload (offset, length) and writes only inside its
+// output row.  Status per block: 0 ok, 1 a byte >= 0x80 (encode), 2 row
+// too small (encode), 3 bad or truncated payload (decode).
 // No host read and no allocation: launches go on the caller's stream.
+//
+// Build-time knobs (the defaults are the library's; `tools.nybble_variants`
+// builds the others to measure a design choice alone):
+//   NYBBLE_DECODE_BLOCKS   blocks a decode warp (chains in its lockstep)
+//   NYBBLE_DECODE_FORWARD  1: the row just written is forwarded when the
+//                          context repeats; 0: stored, then loaded
+//   NYBBLE_ENCODE_WALK / NYBBLE_DECODE_CHAIN  0: skip the serial part
+//                          (output wrong; the rest's cost alone)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef NYBBLE_DECODE_BLOCKS
+#define NYBBLE_DECODE_BLOCKS 1
+#endif
+#ifndef NYBBLE_DECODE_FORWARD
+#define NYBBLE_DECODE_FORWARD 1
+#endif
+#ifndef NYBBLE_ENCODE_WALK
+#define NYBBLE_ENCODE_WALK 1
+#endif
+#ifndef NYBBLE_DECODE_CHAIN
+#define NYBBLE_DECODE_CHAIN 1
+#endif
+
 namespace {
 
-constexpr int kLanes = 8;  // blocks per CTA
+constexpr uint32_t kFull = 0xffffffffu;
 constexpr uint32_t kType = 0xAF;  // NYB_TYPE
 constexpr int kOk = 0, kInput = 1, kCapacity = 2, kFormat = 3;
 // " etaoins", byte k = row position k (nybble_compression.c:546-562)
-constexpr uint64_t kSeed = 0x736e696f61746520ull;
+constexpr uint32_t kSeedLo = 0x61746520u, kSeedHi = 0x736e696fu;
+constexpr int kEncTile = 4096;  // encode: steps a tile
+constexpr int kDecBlocks = NYBBLE_DECODE_BLOCKS;
+constexpr int kDecTile = 4096 / kDecBlocks;  // decode: body bytes a tile, per block
+static_assert(kDecBlocks >= 1 && kDecBlocks <= 32 && kDecTile % 32 == 0, "decode layout");
 
-// Position of byte v in row r (little-endian bytes), or -1.
-__device__ __forceinline__ int find_byte(uint64_t r, uint32_t v) {
-  const uint32_t rep = v * 0x01010101u;
-  const uint32_t lo = __vcmpeq4(static_cast<uint32_t>(r), rep);
-  const uint32_t hi = __vcmpeq4(static_cast<uint32_t>(r >> 32), rep);
-  const uint64_t m = (static_cast<uint64_t>(hi) << 32) | lo;
-  return m ? (__ffsll(static_cast<long long>(m)) - 1) >> 3 : -1;
+// Move-to-front of byte v (byte 0 of v; the row's bytes and v below 0x80)
+// in the row (lo, hi), little-endian: bytes 0..pos shift up one place and
+// v goes to byte 0, pos being v's position or 7 on a miss
+// (update_context, nybble_compression.c:665-687).  Returns the match
+// word: bit 7 of v's byte, 0 on a miss.
+__device__ __forceinline__ uint64_t mtf(uint32_t& lo, uint32_t& hi, uint32_t v) {
+  const uint32_t splat = __byte_perm(v, 0, 0);
+  const uint32_t xl = lo ^ splat, xh = hi ^ splat;
+  // bytes below 0x80: bit 7 of x + 0x7f is clear exactly where x is 0
+  const uint64_t z = (static_cast<uint64_t>(~(xh + 0x7f7f7f7fu) & 0x80808080u) << 32) |
+                     (~(xl + 0x7f7f7f7fu) & 0x80808080u);
+  const uint64_t m = z ^ (z - 1);  // bytes 0..pos; every byte on a miss
+  const uint32_t ml = static_cast<uint32_t>(m), mh = static_cast<uint32_t>(m >> 32);
+  const uint32_t sl = __byte_perm(v, lo, 0x6540);   // (row << 8 | v), low word
+  const uint32_t sh = __byte_perm(lo, hi, 0x6543);  // (row << 8), high word
+  lo = (lo & ~ml) | (sl & ml);
+  hi = (hi & ~mh) | (sh & mh);
+  return z;
 }
 
-// Move-to-front of v found at pos (7 on a miss): bytes 0..pos shift up
-// one place, v goes to byte 0 (update_context, nybble_compression.c:665-687).
-__device__ __forceinline__ uint64_t mtf(uint64_t r, uint32_t v, int pos) {
-  const uint64_t mask = (2ull << (8 * pos + 7)) - 1;  // bytes 0..pos; pos 7: all
-  return (r & ~mask) | (((r << 8) | v) & mask);
+// The steps of row r (tile indexes r + lane) by context, from four
+// ballots: `of_lane`, the steps whose context is this lane's number
+// (meaningful on lanes 0-15); `of_mine`, the steps whose context is this
+// lane's step's.  `ctx` is the lane's step's context.
+__device__ __forceinline__ void context_masks(const uint8_t* tile, uint32_t before, int r, int len,
+                                              int lane, uint32_t& ctx, uint32_t& of_lane,
+                                              uint32_t& of_mine) {
+  const int i = r + lane;
+  const bool valid = i < len;
+  const uint32_t prev = valid ? (i ? tile[i - 1] : before) : 0u;
+  ctx = (prev >> 3) & 15;
+  of_lane = of_mine = __ballot_sync(kFull, valid);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t bits = __ballot_sync(kFull, (ctx >> k) & 1);
+    of_lane &= ((lane >> k) & 1) ? bits : ~bits;
+    of_mine &= ((ctx >> k) & 1) ? bits : ~bits;
+  }
 }
 
-__global__ void __launch_bounds__(kLanes)
+__global__ void __launch_bounds__(32)
 nybble_encode_kernel(const uint8_t* __restrict__ blocks, int64_t S,
                      const int32_t* __restrict__ lengths, uint8_t* __restrict__ rows, int64_t W,
                      int32_t* __restrict__ totals, int32_t* __restrict__ status, int B) {
-  __shared__ uint64_t table[16][kLanes];
+  __shared__ uint8_t tile[kEncTile];       // the tile's bytes (step i's byte)
+  __shared__ uint32_t bucket[kEncTile];    // (tile index << 8) | byte, by context, in order
+  __shared__ uint8_t code[kEncTile];       // step i: 8 | pos on a hit, 0 on a miss
   const int lane = threadIdx.x;
-  const int b = blockIdx.x * kLanes + lane;
-  if (b >= B) return;
-#pragma unroll
-  for (int c = 0; c < 16; ++c) table[c][lane] = kSeed;
+  const int b = blockIdx.x;
+  const uint32_t below = (1u << lane) - 1;
   const int64_t n = min(max(static_cast<int64_t>(lengths[b]), int64_t{0}), S);
-  const uint8_t* src = blocks + b * S;
-  uint8_t* dst = rows + b * W;
+  const uint8_t* src = blocks + static_cast<int64_t>(b) * S;
+  uint8_t* dst = rows + static_cast<int64_t>(b) * W;
   if (W < (n ? n + 2 : 1)) {
-    totals[b] = 0;
-    status[b] = kCapacity;
+    if (lane == 0) {
+      totals[b] = 0;
+      status[b] = kCapacity;
+    }
     return;
   }
-  dst[0] = static_cast<uint8_t>(kType);
   if (n == 0) {
-    totals[b] = 1;
-    status[b] = kOk;
+    if (lane == 0) {
+      dst[0] = static_cast<uint8_t>(kType);
+      totals[b] = 1;
+      status[b] = kOk;
+    }
     return;
   }
-  uint32_t p = __ldg(src);
-  dst[1] = static_cast<uint8_t>(p);
-  uint32_t high = p;  // OR of every byte: bit 7 set means a byte >= 0x80
-  int64_t o = 2;
-  int pending = -1;  // the compressed nybble of a half-filled byte
-  uint32_t next = n > 1 ? __ldg(src + 1) : 0;
-  for (int64_t i = 1; i < n; ++i) {
-    const uint32_t s = next;
-    if (i + 1 < n) next = __ldg(src + i + 1);
-    high |= s;
-    const int ctx = (p >> 3) & 15;
-    const uint64_t r = table[ctx][lane];
-    const int pos = find_byte(r, s);
-    const bool hit = pos >= 0;
-    const bool half = pending >= 0;
-    const uint32_t nyb = 8u | static_cast<uint32_t>(pos);
-    // hit: 0 bytes, or pending|nyb; miss: s, or p then s (re-expand)
-    const int count = hit ? (half ? 1 : 0) : (half ? 2 : 1);
-    const uint32_t b1 = hit ? ((static_cast<uint32_t>(pending) << 4) | nyb) : (half ? p : s);
-    if (count >= 1) dst[o] = static_cast<uint8_t>(b1);
-    if (count == 2) dst[o + 1] = static_cast<uint8_t>(s);
-    o += count;
-    pending = (hit && !half) ? static_cast<int>(nyb) : -1;
-    table[ctx][lane] = mtf(r, s, hit ? pos : 7);
-    p = s;
+  const uint32_t first = __ldg(src);
+  if (lane == 0) {
+    dst[0] = static_cast<uint8_t>(kType);
+    dst[1] = static_cast<uint8_t>(first);
   }
-  if (pending >= 0) dst[o++] = static_cast<uint8_t>(p);  // trailing odd nybble
-  const bool bad = high & 0x80u;
-  totals[b] = bad ? 0 : static_cast<int32_t>(o);
-  status[b] = bad ? kInput : kOk;
+  uint32_t lo = kSeedLo, hi = kSeedHi;  // lane c < 16: context c's row
+  uint32_t high = first;                // OR of the bytes: bit 7 means a byte >= 0x80
+  uint32_t p = first;                   // the byte before the tile
+  uint32_t pcode = 0;                   // its step's code
+  uint32_t half = 0;                    // a compressed nybble pending before the tile
+  int64_t o = 2;                        // output offset of the tile's first step
+  // steps 1..n-1; the tile from step t0 holds steps t0 + i, i < len
+  for (int64_t t0 = 1; t0 < n; t0 += kEncTile) {
+    const int len = static_cast<int>(min(static_cast<int64_t>(kEncTile), n - t0));
+    for (int i = lane; i < len; i += 32) {
+      const uint32_t v = __ldg(src + t0 + i);
+      tile[i] = static_cast<uint8_t>(v);
+      high |= v;
+    }
+    __syncwarp();
+    // bucket: count, then scatter in order (lane c: context c's cursor)
+    int count = 0;
+    for (int r = 0; r < len; r += 32) {
+      uint32_t ctx, of_lane, of_mine;
+      context_masks(tile, p, r, len, lane, ctx, of_lane, of_mine);
+      count += __popc(of_lane);
+    }
+    if (lane >= 16) count = 0;
+    int start = count;  // exclusive prefix over the contexts
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(kFull, start, d);
+      if (lane >= d) start += v;
+    }
+    start -= count;
+    int cursor = start;
+    for (int r = 0; r < len; r += 32) {
+      uint32_t ctx, of_lane, of_mine;
+      context_masks(tile, p, r, len, lane, ctx, of_lane, of_mine);
+      const int at = __shfl_sync(kFull, cursor, ctx) + __popc(of_mine & below);
+      const int i = r + lane;
+      if (i < len) bucket[at] = (static_cast<uint32_t>(i) << 8) | tile[i];
+      cursor += __popc(of_lane);
+    }
+    __syncwarp();
+    // walk: one chain per context, its row in registers
+#if NYBBLE_ENCODE_WALK
+    if (lane < 16 && count > 0) {
+      const int end = start + count;
+      uint32_t e1 = bucket[start];
+      uint32_t e2 = bucket[min(start + 1, kEncTile - 1)];
+      for (int j = start; j < end; ++j) {
+        const uint32_t e = e1;
+        e1 = e2;
+        e2 = bucket[min(j + 2, kEncTile - 1)];
+        const uint64_t z = mtf(lo, hi, e);
+        const int f = __ffsll(static_cast<long long>(z));  // 8 pos + 8, 0 on a miss
+        code[e >> 8] = static_cast<uint8_t>(f ? (f >> 3) + 7 : 0);
+      }
+    }
+#else
+    for (int i = lane; i < len; i += 32) code[i] = static_cast<uint8_t>(tile[i] & 8);
+#endif
+    __syncwarp();
+    // emit, a row of 32 steps at a time
+    for (int r = 0; r < len; r += 32) {
+      const int i = r + lane;
+      const bool valid = i < len;
+      const uint32_t c = valid ? code[i] : 0u;
+      const uint32_t s = valid ? tile[i] : 0u;
+      uint32_t cp = __shfl_up_sync(kFull, c, 1), sp = __shfl_up_sync(kFull, s, 1);
+      if (lane == 0) {
+        cp = pcode;
+        sp = p;
+      }
+      const bool hit = c & 8u;
+      const uint32_t in_row = __ballot_sync(kFull, valid);
+      const uint32_t misses = __ballot_sync(kFull, valid && !hit);
+      const uint32_t before = misses & below;
+      // pending before step i: parity of the hits since the last miss
+      const uint32_t h = before ? ((lane - 1 - (31 - __clz(before))) & 1)
+                                : (half ^ (static_cast<uint32_t>(lane) & 1));
+      const uint32_t halves = __ballot_sync(kFull, valid && h);
+      const int64_t at = o + __popc(before) + __popc(halves & below);
+      // hit: nothing, or the pending nybble and this one; miss: s, or the
+      // byte before (re-expanded) and s
+      const int emit = valid ? (hit ? static_cast<int>(h) : 1 + static_cast<int>(h)) : 0;
+      const uint32_t b1 = hit ? ((cp << 4) | c) : (h ? sp : s);
+      if (emit >= 1) dst[at] = static_cast<uint8_t>(b1);
+      if (emit == 2) dst[at + 1] = static_cast<uint8_t>(s);
+      o += __popc(misses) + __popc(halves);
+      const int last = 31 - __clz(in_row);
+      half = __shfl_sync(kFull, hit && !h, last);
+      pcode = __shfl_sync(kFull, c, last);
+      p = __shfl_sync(kFull, s, last);
+    }
+    __syncwarp();
+  }
+  high = __reduce_or_sync(kFull, high);
+  if (lane == 0) {
+    if (half) dst[o++] = static_cast<uint8_t>(p);  // trailing odd nybble: the last byte whole
+    const bool bad = high & 0x80u;
+    totals[b] = bad ? 0 : static_cast<int32_t>(o);
+    status[b] = bad ? kInput : kOk;
+  }
 }
 
-// Byte i of the payload body, 0 past its end.
-__device__ __forceinline__ uint32_t body_at(const uint8_t* data, int64_t dlen, int64_t i) {
-  return i < dlen ? __ldg(data + i) : 0u;
+__device__ __forceinline__ int64_t lane_value(int64_t v, int g) {
+  return __shfl_sync(kFull, static_cast<long long>(v), g);
 }
 
-__global__ void __launch_bounds__(kLanes)
+template <typename T>
+__device__ __forceinline__ T* lane_pointer(T* v, int g) {
+  return reinterpret_cast<T*>(__shfl_sync(kFull, reinterpret_cast<unsigned long long>(v), g));
+}
+
+__global__ void __launch_bounds__(32)
 nybble_decode_kernel(const uint8_t* __restrict__ flat, int64_t flat_len,
                      const int64_t* __restrict__ offsets, const int32_t* __restrict__ plens,
                      const int32_t* __restrict__ raw_lens, uint8_t* __restrict__ out, int64_t S,
                      int32_t* __restrict__ status, int B) {
-  __shared__ uint64_t table[16][kLanes];
+  __shared__ uint8_t body[kDecBlocks][kDecTile + 4];  // the tile's body bytes, then the next one
+  __shared__ uint8_t rec[kDecBlocks][2 * kDecTile];   // a step's record, then its byte
+  __shared__ __align__(128) uint2 table[kDecBlocks][16];
   const int lane = threadIdx.x;
-  const int b = blockIdx.x * kLanes + lane;
-  if (b >= B) return;
-#pragma unroll
-  for (int c = 0; c < 16; ++c) table[c][lane] = kSeed;
-  const int64_t n = min(max(static_cast<int64_t>(raw_lens[b]), int64_t{0}), S);
-  if (n == 0) {
-    status[b] = kOk;
-    return;
+  const uint32_t below = (1u << lane) - 1;
+  for (int e = lane; e < kDecBlocks * 16; e += 32) {
+    table[e / 16][e % 16] = make_uint2(kSeedLo, kSeedHi);
   }
-  // the block's payload, clamped into flat
-  const int64_t off = min(max(offsets[b], int64_t{0}), flat_len);
-  const int64_t plen = min(max(static_cast<int64_t>(plens[b]), int64_t{0}), flat_len - off);
-  const uint8_t* payload = flat + off;
-  if (plen < 2 || __ldg(payload) != kType) {
-    status[b] = kFormat;
-    return;
-  }
-  uint8_t* dst = out + b * S;
-  uint32_t prev = __ldg(payload + 1);
-  dst[0] = static_cast<uint8_t>(prev);
-  const uint8_t* data = payload + 2;
-  const int64_t dlen = plen - 2;
-  // window on the body: w0 = byte j >> 1, w1 and w2 the next two
-  int64_t base = 0;
-  uint32_t w0 = body_at(data, dlen, 0), w1 = body_at(data, dlen, 1), w2 = body_at(data, dlen, 2);
-  int64_t j = 0;  // nybble cursor
+  // lane g < kDecBlocks: block b's state
+  const int b = blockIdx.x * kDecBlocks + lane;
+  const bool own = lane < kDecBlocks && b < B;
+  int64_t n = 0;     // raw length; 0 once the block is done
+  int64_t dlen = 0;  // payload body bytes
+  int64_t base = 0;  // body offset of the tile
+  int64_t k = 1;     // the tile's first step
+  const uint8_t* data = flat;
+  uint8_t* dst = out;
   int st = kOk;
-  for (int64_t k = 1; k < n; ++k) {
-    const uint32_t odd = static_cast<uint32_t>(j & 1);
-    const uint32_t nyb = odd ? (w0 & 15u) : (w0 >> 4);
-    const bool packed = nyb & 8u;
-    // a literal's second nybble: low half of w0, or high half of w1
-    const uint32_t nxt = odd ? (w1 >> 4) : (w0 & 15u);
-    const int64_t last = (j + (packed ? 0 : 1)) >> 1;  // last body byte this step reads
-    if (last >= dlen) {
-      st = kFormat;
-      break;
-    }
-    const int ctx = (prev >> 3) & 15;
-    const uint64_t r = table[ctx][lane];
-    const uint32_t o = packed ? static_cast<uint32_t>(r >> (8 * (nyb & 7u))) & 0xffu
-                              : ((nyb & 7u) << 4) | nxt;
-    const int pos = find_byte(r, o);
-    table[ctx][lane] = mtf(r, o, pos >= 0 ? pos : 7);
-    dst[k] = static_cast<uint8_t>(o);
-    prev = o;
-    j += packed ? 1 : 2;
-    if ((j >> 1) != base) {  // advanced one byte
-      ++base;
-      w0 = w1;
-      w1 = w2;
-      w2 = body_at(data, dlen, base + 2);
+  uint32_t prev = 0;  // the byte before the step, bit 7 dropped (its context is bits 3-6)
+  if (own) {
+    n = min(max(static_cast<int64_t>(raw_lens[b]), int64_t{0}), S);
+    dst = out + static_cast<int64_t>(b) * S;
+    if (n > 0) {
+      // the block's payload, clamped into flat
+      const int64_t off = min(max(offsets[b], int64_t{0}), flat_len);
+      const int64_t plen = min(max(static_cast<int64_t>(plens[b]), int64_t{0}), flat_len - off);
+      const uint8_t* payload = flat + off;
+      if (plen < 2 || __ldg(payload) != kType) {
+        st = kFormat;
+        n = 0;
+      } else {
+        const uint32_t first = __ldg(payload + 1);
+        dst[0] = static_cast<uint8_t>(first);
+        prev = first & 0x7f;
+        data = payload + 2;
+        dlen = plen - 2;
+      }
     }
   }
-  status[b] = st;
+  uint32_t carry = 0;  // the automaton at the tile's first nybble: 0 a token, 1 a literal's second half
+  int taken = 0;       // records of the tile
+  uint32_t last = 0;   // row offset (context x 8) of the previous step's context
+  uint32_t nlo = kSeedLo, nhi = kSeedHi;  // the row it wrote (stored at the next step)
+  char* const rows = reinterpret_cast<char*>(table[min(lane, kDecBlocks - 1)]);
+  for (;;) {
+    if (k < n && base >= dlen) {  // the body ran out before the raw length
+      st = kFormat;
+      n = 0;
+    }
+    const uint32_t busy = __ballot_sync(kFull, k < n);  // lanes past kDecBlocks have n = 0
+    if (!busy) break;
+    // parse each busy block's tile into records
+    for (int g = 0; g < kDecBlocks; ++g) {
+      if (!((busy >> g) & 1)) continue;
+      const int64_t gbase = lane_value(base, g), gdlen = lane_value(dlen, g);
+      const uint8_t* gdata = lane_pointer(data, g);
+      const int len = static_cast<int>(min(static_cast<int64_t>(kDecTile), gdlen - gbase));
+      const int cap = static_cast<int>(min(static_cast<int64_t>(2 * kDecTile), lane_value(n - k, g)));
+      const bool end_tile = gbase + len >= gdlen;
+      uint32_t c = __shfl_sync(kFull, carry, g);
+      for (int q = lane; q <= len; q += 32) {
+        body[g][q] = gbase + q < gdlen ? __ldg(gdata + gbase + q) : 0;
+      }
+      __syncwarp();
+      int made = 0;
+      for (int r = 0; r < len && made < cap; r += 32) {
+        const int q = r + lane;
+        const bool valid = q < len;
+        const uint32_t v = valid ? body[g][q] : 0u;
+        const uint32_t nb = valid ? body[g][q + 1] : 0u;
+        const uint32_t hi = v >> 4, lo = v & 15;
+        const uint32_t ph = hi >> 3, pl = lo >> 3;
+        // the byte's function of the automaton: bit x = state after the
+        // byte from state x (0: a token starts at its high nybble)
+        uint32_t f = valid ? ((ph & (pl ^ 1)) | ((pl ^ 1) << 1)) : 2u;  // 2: identity
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const uint32_t e = __shfl_up_sync(kFull, f, d);  // the bytes before, composed
+          if (lane >= d) f = ((f >> (e & 1)) & 1) | (((f >> ((e >> 1) & 1)) & 1) << 1);
+        }
+        const uint32_t after = (f >> c) & 1;
+        uint32_t entry = __shfl_up_sync(kFull, after, 1);
+        if (lane == 0) entry = c;
+        const bool t0 = valid && entry == 0;
+        // a literal on the body's last nybble would read past the body
+        const bool t1 = valid && (entry == 1 || ph) && !(end_tile && q == len - 1 && !pl);
+        const uint32_t b0 = __ballot_sync(kFull, t0), b1 = __ballot_sync(kFull, t1);
+        const int at = made + __popc(b0 & below) + __popc(b1 & below);
+        const uint32_t r0 = ph ? (0x80u | (hi & 7)) : (((hi & 7) << 4) | lo);
+        const uint32_t r1 = pl ? (0x80u | (lo & 7)) : (((lo & 7) << 4) | (nb >> 4));
+        if (t0 && at < cap) rec[g][at] = static_cast<uint8_t>(r0);
+        if (t1 && at + t0 < cap) rec[g][at + t0] = static_cast<uint8_t>(r1);
+        made += __popc(b0) + __popc(b1);
+        c = __shfl_sync(kFull, after, 31);
+      }
+      if (lane == g) {
+        taken = min(made, cap);
+        carry = c;
+        base += len;
+      }
+    }
+    __syncwarp();
+    // chain: lane g walks block g's records
+#if NYBBLE_DECODE_CHAIN
+    if ((busy >> lane) & 1) {
+      uint8_t* const recs = rec[lane];
+      uint32_t t_next = recs[0];
+      for (int j = 0; j < taken; ++j) {
+        const uint32_t t = t_next;
+        t_next = recs[min(j + 1, 2 * kDecTile - 1)];
+        const uint32_t at = prev & 0x78;  // context x 8
+        uint2 r = *reinterpret_cast<const uint2*>(rows + at);
+#if NYBBLE_DECODE_FORWARD
+        *reinterpret_cast<uint2*>(rows + last) = make_uint2(nlo, nhi);
+        if (at == last) r = make_uint2(nlo, nhi);
+#endif
+        const uint32_t o = (t & 0x80) ? __byte_perm(r.x, r.y, t & 7) : t;
+        mtf(r.x, r.y, o);
+#if NYBBLE_DECODE_FORWARD
+        nlo = r.x;
+        nhi = r.y;
+        last = at;
+#else
+        *reinterpret_cast<uint2*>(rows + at) = r;
+#endif
+        recs[j] = static_cast<uint8_t>(o);
+        prev = o;
+      }
+    }
+#endif
+    __syncwarp();
+    // flush the tile's bytes to the output rows
+    for (int g = 0; g < kDecBlocks; ++g) {
+      if (!((busy >> g) & 1)) continue;
+      uint8_t* gdst = lane_pointer(dst, g) + lane_value(k, g);
+      const int gtaken = __shfl_sync(kFull, taken, g);
+      for (int q = lane; q < gtaken; q += 32) gdst[q] = rec[g][q];
+    }
+    if ((busy >> lane) & 1) k += taken;
+    __syncwarp();
+  }
+  if (own) status[b] = st;
 }
 
 }  // namespace
@@ -197,8 +439,7 @@ nybble_decode_kernel(const uint8_t* __restrict__ flat, int64_t flat_len,
 extern "C" int dct_nybble_encode(const void* blocks, long long S, const void* lengths, void* rows,
                                  long long W, void* totals, void* status, int B, void* stream) {
   if (B > 0) {
-    nybble_encode_kernel<<<(B + kLanes - 1) / kLanes, kLanes, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+    nybble_encode_kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(blocks), static_cast<int64_t>(S),
         static_cast<const int32_t*>(lengths), static_cast<uint8_t*>(rows),
         static_cast<int64_t>(W), static_cast<int32_t*>(totals), static_cast<int32_t*>(status), B);
@@ -210,7 +451,7 @@ extern "C" int dct_nybble_decode(const void* flat, long long flat_len, const voi
                                  const void* plens, const void* raw_lens, void* out, long long S,
                                  void* status, int B, void* stream) {
   if (B > 0) {
-    nybble_decode_kernel<<<(B + kLanes - 1) / kLanes, kLanes, 0,
+    nybble_decode_kernel<<<(B + kDecBlocks - 1) / kDecBlocks, 32, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(flat), static_cast<int64_t>(flat_len),
         static_cast<const int64_t*>(offsets), static_cast<const int32_t*>(plens),
@@ -221,18 +462,18 @@ extern "C" int dct_nybble_decode(const void* flat, long long flat_len, const voi
 }
 
 // CTAs of a nybble lane kernel resident on an SM at once (occupancy API),
-// the blocks (lanes) one CTA holds, its threads and its shared bytes; as
+// the blocks one CTA holds, its threads and its shared bytes; as
 // dct_small_occupancy.
-extern "C" int dct_nybble_occupancy(int decode, void* ctas, void* lanes_per_cta, void* threads,
+extern "C" int dct_nybble_occupancy(int decode, void* ctas, void* blocks_per_cta, void* threads,
                                     void* smem_bytes) {
   const void* fn = decode ? reinterpret_cast<const void*>(nybble_decode_kernel)
                           : reinterpret_cast<const void*>(nybble_encode_kernel);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
-  *static_cast<int*>(lanes_per_cta) = kLanes;
-  *static_cast<int*>(threads) = kLanes;
+  *static_cast<int*>(blocks_per_cta) = decode ? kDecBlocks : 1;
+  *static_cast<int*>(threads) = 32;
   *static_cast<int*>(smem_bytes) = static_cast<int>(attr.sharedSizeBytes);
   return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(static_cast<int*>(ctas), fn, kLanes, 0));
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(static_cast<int*>(ctas), fn, 32, 0));
 }

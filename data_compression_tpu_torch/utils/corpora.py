@@ -131,20 +131,54 @@ def tight_span_payload(kind: str, S: int, seed: int) -> tuple:
     return bytes([8, 0x11 if nybble else 0x61] + idx), total // 2 if nybble else total
 
 
-def small_payload_mix(kind: str, S: int, count: int, seed: int, real: bytes) -> tuple:
-    """([payload], [raw length]) for the small decoders on S-byte blocks,
-    four kinds in turn: crafted streams of the deepest words
-    (``tight_span_payload``, some cut one or two symbols short), the real
-    payload ``real`` of S bytes with 1-4 bytes flipped, the same cut
-    short, and random bodies behind the type byte (small_byte's 0xFF,
-    which the native decoder reads past its table, left out)."""
+def nybble_token_payload(S: int, seed: int, variant: int) -> tuple:
+    """(payload, raw length) of a random nybble token stream for an
+    S-byte block (S >= 5) that ends exactly at the body's end: packed
+    tokens (one nybble, 8 | pos) and literals (two) at random, a first
+    byte of any value.  ``variant`` 0: the raw length the stream decodes
+    to; 1: one step more, past the body; 2 and 3: the body and one byte
+    more, a packed token and then a literal's first nybble, at the raw
+    length that ends on the packed token (2) or one more, whose literal
+    would read its second nybble past the body (3)."""
+    rng = np.random.default_rng(seed)
+    m = int(rng.integers(1, S - 3))  # tokens
+    nybbles = []
+    for _ in range(m):
+        if rng.random() < 0.6:
+            nybbles.append(8 | int(rng.integers(0, 8)))
+        else:
+            nybbles += [int(rng.integers(0, 8)), int(rng.integers(0, 16))]
+    if len(nybbles) % 2:  # end on a byte: one more packed token
+        nybbles.append(8 | int(rng.integers(0, 8)))
+        m += 1
+    body = bytes((a << 4) | b for a, b in zip(nybbles[0::2], nybbles[1::2]))
+    if variant >= 2:
+        body += bytes([((8 | int(rng.integers(0, 8))) << 4) | int(rng.integers(0, 8))])
+    payload = bytes([0xAF, int(rng.integers(0, 256))]) + body
+    return payload, m + 1 + (variant != 0) + (variant == 3)
+
+
+def payload_mix(kind: str, S: int, count: int, seed: int, real: bytes) -> tuple:
+    """([payload], [raw length]) for the serial decoders on S-byte
+    blocks, four kinds in turn: crafted streams (small_byte /
+    small_nybble: ``tight_span_payload``'s deepest words, some cut one or
+    two symbols short; nybble: ``nybble_token_payload``'s token streams
+    ending at the body's end, with a raw length one step past it or a
+    literal's second nybble past it), the real payload ``real`` of S
+    bytes with 1-4 bytes flipped, the same cut short, and random bodies
+    behind the type byte (small_byte's 0xFF, which the native decoder
+    reads past its table, left out)."""
     rng = np.random.default_rng(seed)
     top = 255 if kind == "small_byte" else 256
+    type_byte = 0xAF if kind == "nybble" else 8
     payloads, raws = [], []
     for k in range(count):
         if k % 4 == 0:
-            p, n = tight_span_payload(kind, S, k)
-            n -= k % 3
+            if kind == "nybble":
+                p, n = nybble_token_payload(S, k, (k // 4) % 4)
+            else:
+                p, n = tight_span_payload(kind, S, k)
+                n -= k % 3
         elif k % 4 == 1:
             b = bytearray(real)
             for j in rng.integers(2, len(b), int(rng.integers(1, 5))):
@@ -153,7 +187,8 @@ def small_payload_mix(kind: str, S: int, count: int, seed: int, real: bytes) -> 
         elif k % 4 == 2:
             p, n = real[: int(rng.integers(0, len(real)))], S
         else:
-            p = bytes([8]) + rng.integers(0, top, int(rng.integers(0, S + S // 8)), np.uint8).tobytes()
+            body = rng.integers(0, top, int(rng.integers(0, S + S // 8)), np.uint8).tobytes()
+            p = bytes([type_byte]) + body
             n = int(rng.integers(1, S + 1))
         payloads.append(p)
         raws.append(n)

@@ -40,7 +40,7 @@ from data_compression_tpu_torch.utils.corpora import (
     deep_code_block,
     enwik_like,
     printable_like,
-    small_payload_mix,
+    payload_mix,
     tight_span_payload,
 )
 from data_compression_tpu_torch.ops import scan_codecs as psc
@@ -1227,7 +1227,7 @@ NARROW_MAX = {"small_byte": 1 << 19, "small_nybble": 1 << 18}
 
 @pytest.mark.parametrize("kind", SMALL_KINDS)
 def test_small_decode_lanes_match_the_native_runtime_on_crafted_and_random_payloads(cuda, kind):
-    """64 KiB rows of ``corpora.small_payload_mix``: crafted streams of
+    """64 KiB rows of ``corpora.payload_mix``: crafted streams of
     the deepest words (spans whose sources end exactly where they are
     written, up to 361 / 511 symbols, sources inside the copier's round
     of 32), the same cut one or two symbols short, real payloads with
@@ -1235,7 +1235,7 @@ def test_small_decode_lanes_match_the_native_runtime_on_crafted_and_random_paylo
     equal the native decoder's."""
     S = 65536
     real = getattr(native, f"{kind}_encode")(enwik_like(S, 98))
-    payloads, raws = small_payload_mix(kind, S, 48, 99, real)
+    payloads, raws = payload_mix(kind, S, 48, 99, real)
     assert 0 < _small_decode_against_native(kind, payloads, raws, S, cuda) < len(payloads)
 
 

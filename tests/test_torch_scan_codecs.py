@@ -24,7 +24,7 @@ from data_compression_tpu_torch.utils.corpora import (
     enwik_like,
     long_small_blocks,
     printable_like,
-    small_payload_mix,
+    payload_mix,
     tight_span_payload,
 )
 from data_compression_tpu_torch.utils.debug import CodecStats
@@ -180,7 +180,7 @@ def test_plain_small_decoders_on_the_deepest_words(kind):
     assert getattr(jsc, f"{kind}_decode_blocks")(payloads[:2], raws[:2]) == want
     # the card tests' mix of crafted, corrupted, cut and random payloads
     real = getattr(native, f"{kind}_encode")(enwik_like(S, 85))
-    payloads, raws = small_payload_mix(kind, S, 8, 86, real)
+    payloads, raws = payload_mix(kind, S, 8, 86, real)
     out, status = lanes.DECODERS[kind](*_flat(payloads), torch.tensor(raws, dtype=torch.int32), S)
     small_decoded_as_native(kind, payloads, raws, out, status)
 
