@@ -65,19 +65,25 @@ script exits non-zero without a result line):
      input, on 64 KiB of one byte value and on 64 KiB of 7-bit random
      bytes, and against its plain version, byte for byte, on the same
      blocks and payloads (the plain step loop run on the card once on
-     the 1,024 blocks and the two edge blocks together, and timed; the
-     small lanes' step is one CUDA graph replay); the small decoders also
+     the 1,024 blocks and the two edge blocks together, and timed; every
+     plain lane's step is one CUDA graph replay); each decoder also
      against the native decoder on 256 payloads of 64 KiB blocks, crafted
-     (the deepest words, each span's source ending where it is written),
-     real with flipped bytes or cut short, and random, with equal
-     statuses and equal OK rows; the small encoders
+     (small codecs: the deepest words, each span's source ending where it
+     is written; nybble: token streams ending at the body's end, one step
+     or a literal's second nybble past it), real with flipped bytes or
+     cut short, and random, with equal statuses and equal OK rows; the
+     nybble lanes also on 64 MiB of one-context blocks (1,024
+     ``deep_code_block`` seeds: nearly every step in context 1, the
+     encoder's worst case), against the native batch drivers and timed
+     (device ms); the small encoders
      and decoders also against the native batch drivers on three 24 MiB
      (small_byte) or 16 MiB (small_nybble) blocks, one of which rewrites
      each slot of its context more than 65,535 times
      (``corpora.long_small_blocks``); each timed at 64 MiB (chain and
      device ms) beside its HBM bound and its serial-chain floor (steps of
-     the longest lane x one step's dependent cycles read off the source,
-     at the SM clock a spin kernel measures), with its CTAs resident an
+     the longest lane (nybble encode: the longest context chain of any
+     block, counted on the host) x one step's dependent cycles read off
+     the SASS, at the SM clock a spin kernel measures), with its CTAs resident an
      SM (occupancy API) and the waves of the 64 MiB launch.  Then each
      serial codec (literal, nybble,
      small_byte, small_byte with the ISPRINT mode, small_nybble) made for
@@ -149,7 +155,8 @@ higher of the two as ``bound_ms``, ``layout``, ``ctas_per_sm``,
 ``blocks_per_cta``, ``threads_per_cta``, ``smem_per_cta`` (read off the
 kernel at the launch's block size, ``serial_lanes.lane_occupancy``) and ``waves``; the small
 encoders' ``long_block_*``: the long blocks' size, a slot's rewrites and the three statuses;
-the small decoders' ``random_payloads``: blocks, OK and FORMAT statuses of the payload mix).  A time per call is the best of 3 trials
+the decoders' ``random_payloads``: blocks, OK and FORMAT statuses of the payload mix; the nybble
+lanes' ``one_context_device_ms`` and ``one_context_chain_steps`` on the one-context input).  A time per call is the best of 3 trials
 of back-to-back calls, each at least 0.05 s
 (``tools.timing.time_chain``), the lookup variants' the median of
 single launches with the input cold in L2 (``tools.timing.cold_ms``).
@@ -612,11 +619,22 @@ LANES = [
     ("small_nybble_decode", "small_nybble", "decode",
      "data_compression_tpu_torch/csrc/small_lanes.cu", "data_compression_tpu/ops/scan_codecs.py:603"),
 ]
-# One step's serial chain, read off the source: (shared-memory loads,
-# dependent integer operations) from one step's state to the next's.
-# nybble encode: the row load, two byte compares, find-first, the
-# move-to-front mask and merge; decode adds the byte's extraction and
-# its splat.  small encode: the target key from the index, the compares
+# One step's serial chain: (shared-memory loads, dependent integer
+# operations) from one step's state to the next's, read off the SASS of
+# the committed kernels (`cuobjdump -sass`, `tools.nybble_variants
+# --sass`); a floor only goes down, so an entry keeps its old count where
+# the compiled chain is longer.
+# nybble encode (one context's chain, its row in two registers; was
+# (1, 12) with the row in shared memory): the splat's XOR, the zero-byte
+# add and mask, the low word's borrow, the high word's (IADD3.X), its
+# XOR and the merge: 7 operations, no load.  Its steps are the longest
+# context chain of any block, counted on the host.
+# nybble decode (was (1, 17)): from the row's load, the byte
+# (`__byte_perm` or the record's literal), then the move-to-front the
+# next load waits on through the row's store: the splat's XOR, the
+# zero-byte add and mask, the borrows (2), the XOR and the merge, the
+# store's data: 9 operations and the load.
+# small encode: the target key from the index, the compares
 # and offers (2), the two-level minimum (2), the warp's minimum
 # (`__reduce_min_sync`), the test and the next index (2) (scheme B: the
 # literal shortcut's select); no shared load.
@@ -628,7 +646,7 @@ LANES = [
 # the length (2), its test, the last three nybbles (4), the byte by
 # parity (4), the row offset, select, merge and address (4): 15 compiled;
 # it keeps the 14 it had, as a floor only goes down.
-LANE_CHAIN = {"nybble_encode": (1, 12), "nybble_decode": (1, 17),
+LANE_CHAIN = {"nybble_encode": (0, 7), "nybble_decode": (1, 9),
               "small_byte_encode": (0, 8), "small_byte_decode": (1, 5),
               "small_nybble_encode": (0, 9), "small_nybble_decode": (1, 14)}
 SHARED_LOAD_CYCLES = 30  # H100 shared-memory load latency, about 30 cycles (assumed)
@@ -767,12 +785,13 @@ def long_lane_check(kind: str, dev) -> dict:
             "long_block_status": status.cpu().tolist()}
 
 
-def small_decode_against_native(kind: str, dev) -> dict:
-    """The small decoder of ``kind`` against the native decoder on 256
-    payloads of 64 KiB blocks (``corpora.payload_mix``: crafted
-    streams of the deepest words, a real payload with flipped bytes or
-    cut short, random bodies); statuses must be equal and OK rows equal;
-    -> the counts."""
+def decode_mix_against_native(kind: str, dev) -> dict:
+    """The decoder of ``kind`` against the native decoder on 256 payloads
+    of 64 KiB blocks (``corpora.payload_mix``: crafted streams (the small
+    codecs' deepest words; nybble token streams ending at the body's end,
+    one step or a literal's second nybble past it), a real payload with
+    flipped bytes or cut short, random bodies); statuses must be equal and
+    OK rows equal; -> the counts."""
     import numpy as np
     import torch
 
@@ -812,6 +831,38 @@ def small_decode_against_native(kind: str, dev) -> dict:
     return {"blocks": len(payloads), "ok": ok, "format": len(payloads) - ok}
 
 
+def one_context_phase(dev, card: str) -> dict:
+    """Both nybble lanes on 64 MiB of one-context blocks (1,024
+    ``deep_code_block`` seeds: symbols 0-15, nearly every step in context
+    1, so the encoder's block is one 64K-step chain), against the native
+    batch drivers, then timed (device ms); -> {direction: kernels-line
+    keys}."""
+    from data_compression_tpu_torch import CodecConfig, framing
+    from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
+    from data_compression_tpu_torch.tools import timing
+    from data_compression_tpu_torch.utils.corpora import deep_code_block
+
+    one = b"".join(deep_code_block(LANE_EDGE_BYTES, seed) for seed in range(1024))
+    blocks, lengths = framing.split_blocks(one, CodecConfig().block_size)
+    fb, fl, _, _, _, dargs = lane_check("nybble", blocks, lengths, dev, "64 MiB of one context")
+    chain = longest_context_chain(blocks, lengths)
+    enc_ms = timing.device_ms(lambda: lanes.nybble_encode(fb, fl), 4)
+    dec_ms = timing.device_ms(lambda: lanes.nybble_decode(*dargs), 4)
+    log(f"lanes nybble, one context ({len(lengths)} deep-code blocks, longest context chain "
+        f"{chain} steps): encode {enc_ms:.4f} device ms, decode {dec_ms:.4f} device ms; card {card}")
+    return {"encode": {"one_context_device_ms": enc_ms, "one_context_chain_steps": chain},
+            "decode": {"one_context_device_ms": dec_ms,
+                       "one_context_chain_steps": int(lengths.max()) - 1}}
+
+
+def longest_context_chain(blocks, lengths) -> int:
+    """The nybble encoder's serial chain: the most steps of one context in
+    any block (``tools.nybble_variants.longest_context_chain``)."""
+    from data_compression_tpu_torch.tools.nybble_variants import longest_context_chain as count
+
+    return count(blocks, lengths)
+
+
 def lane_phase(data: bytes, dev, card: str) -> dict:
     """Phase 8a: each lane kernel against the native batch drivers on the
     whole 64 MiB input, on 64 KiB of one byte value and on 64 KiB of
@@ -848,8 +899,12 @@ def lane_phase(data: bytes, dev, card: str) -> dict:
         tot = totals.cpu().numpy().astype(np.int64)
         plens = dargs[2].cpu().numpy().astype(np.int64)
         steps = {"encode": int(n.max()) * (2 if kind == "small_nybble" else 1)
-                 - (1 if kind == "nybble" else 2 if kind == "small_byte" else 3),
+                 - (2 if kind == "small_byte" else 3),
                  "decode": int(n.max()) - 1 if kind == "nybble" else int(plens.max()) - 2}
+        extra = {"encode": {}, "decode": {}}
+        if kind == "nybble":
+            steps["encode"] = longest_context_chain(blocks, lengths)
+            extra = one_context_phase(dev, card)
         moved = {"encode": int(n.sum()) + nbytes_of(fl) + int(tot.sum()) + 8 * len(n),
                  "decode": int(plens.sum()) + 16 * len(plens) + int(n[tot > 0].sum())
                  + 4 * len(plens)}
@@ -875,9 +930,10 @@ def lane_phase(data: bytes, dev, card: str) -> dict:
             occ = lanes.lane_occupancy(name, blocks.shape[1])
             ctas, per_cta = occ["ctas_per_sm"], occ["blocks_per_cta"]
             waves = -(-len(n) // (ctas * per_cta * sms))
-            results[name].update(**occ, waves=waves, **(long if direction == "encode" else {}))
-            if direction == "decode" and kind != "nybble":
-                results[name]["random_payloads"] = small_decode_against_native(kind, dev)
+            results[name].update(**occ, waves=waves, **(long if direction == "encode" else {}),
+                                 **extra[direction])
+            if direction == "decode":
+                results[name]["random_payloads"] = decode_mix_against_native(kind, dev)
             log(f"kernel {name}: 64 MiB {ms:.4f} ms (device {dms:.4f} ms); HBM bound "
                 f"{hbm:.4f} ms, serial-chain floor {floor:.4f} ms ({steps[direction]} steps x "
                 f"{cycles} cycles at {clock / 1e3:.0f} MHz), {ms / max(floor, hbm):.2f}x the "

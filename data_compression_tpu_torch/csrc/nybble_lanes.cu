@@ -23,9 +23,12 @@
 //   * walk: lane c < 16 walks context c's bucket with the row in two
 //     registers: the byte's match word by XOR with its splat and a
 //     zero-byte test, the move-to-front as a masked merge of the row with
-//     the row shifted one byte (two `__byte_perm`), about 7 dependent
-//     integer operations a step and no shared load or store on the chain;
-//     it writes each step's (hit, pos) code at the step's tile index;
+//     the row shifted one byte (two `__byte_perm`), 7 dependent integer
+//     operations a step and no shared load or store on the chain; it
+//     writes each step's (hit, pos) code at the step's tile index, the
+//     code by a multiply (no FLO).  Hopper issues an integer instruction
+//     every other cycle a scheduler, so a step's 20 or so bind, not its
+//     chain;
 //   * emit: warp-parallel again, a row of 32 steps at a time.  Whether a
 //     compressed nybble is pending before step i (`half`) follows hits
 //     and misses only: a miss clears it, a hit flips it, so it is the
@@ -77,7 +80,7 @@
 #include <stdint.h>
 
 #ifndef NYBBLE_DECODE_BLOCKS
-#define NYBBLE_DECODE_BLOCKS 1
+#define NYBBLE_DECODE_BLOCKS 2
 #endif
 #ifndef NYBBLE_DECODE_FORWARD
 #define NYBBLE_DECODE_FORWARD 1
@@ -104,21 +107,62 @@ static_assert(kDecBlocks >= 1 && kDecBlocks <= 32 && kDecTile % 32 == 0, "decode
 // Move-to-front of byte v (byte 0 of v; the row's bytes and v below 0x80)
 // in the row (lo, hi), little-endian: bytes 0..pos shift up one place and
 // v goes to byte 0, pos being v's position or 7 on a miss
-// (update_context, nybble_compression.c:665-687).  Returns the match
-// word: bit 7 of v's byte, 0 on a miss.
-__device__ __forceinline__ uint64_t mtf(uint32_t& lo, uint32_t& hi, uint32_t v) {
+// (update_context, nybble_compression.c:665-687).  Returns the step's
+// code: 8 | pos on a hit, 0 on a miss.
+__device__ __forceinline__ uint32_t mtf(uint32_t& lo, uint32_t& hi, uint32_t v) {
   const uint32_t splat = __byte_perm(v, 0, 0);
   const uint32_t xl = lo ^ splat, xh = hi ^ splat;
   // bytes below 0x80: bit 7 of x + 0x7f is clear exactly where x is 0
-  const uint64_t z = (static_cast<uint64_t>(~(xh + 0x7f7f7f7fu) & 0x80808080u) << 32) |
-                     (~(xl + 0x7f7f7f7fu) & 0x80808080u);
+  const uint32_t zl = ~(xl + 0x7f7f7f7fu) & 0x80808080u, zh = ~(xh + 0x7f7f7f7fu) & 0x80808080u;
+  const uint64_t z = (static_cast<uint64_t>(zh) << 32) | zl;
   const uint64_t m = z ^ (z - 1);  // bytes 0..pos; every byte on a miss
   const uint32_t ml = static_cast<uint32_t>(m), mh = static_cast<uint32_t>(m >> 32);
   const uint32_t sl = __byte_perm(v, lo, 0x6540);   // (row << 8 | v), low word
   const uint32_t sh = __byte_perm(lo, hi, 0x6543);  // (row << 8), high word
   lo = (lo & ~ml) | (sl & ml);
   hi = (hi & ~mh) | (sh & mh);
-  return z;
+  // the match bit at nybble 2 pos (pos < 4) or 2 (pos - 4) + 1: a multiply
+  // moves nybble 7 - that of 0x8C9DAEBF, the code, to the top (no FLO)
+  return (((zl >> 7) | (zh >> 3)) * 0x8C9DAEBFu) >> 28;
+}
+
+// Copies src[0, m) (device memory) to dst[0, m) (shared memory), dst and
+// src equal mod 16, by a group of kLanes lanes (`lane` its lane): the
+// aligned middle by 16-byte loads, every load issued before the first
+// store, the ends (under 16 bytes each) by byte loads.  m <= kMax.  Reads
+// nothing outside src[0, m).
+template <int kMax, int kLanes>
+__device__ __forceinline__ void stage(uint8_t* dst, const uint8_t* __restrict__ src, int m,
+                                      int lane) {
+  constexpr int kPer = (kMax / 16 + kLanes - 1) / kLanes;
+  constexpr int kEnds = (15 + kLanes - 1) / kLanes;
+  const int head = min(static_cast<int>((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15), m);
+  const int chunks = (m - head) >> 4;
+  const int tail = head + (chunks << 4);
+  const uint4* wide = reinterpret_cast<const uint4*>(src + head);
+  uint4 v[kPer];
+  uint32_t hb[kEnds], tb[kEnds];
+#pragma unroll
+  for (int t = 0; t < kPer; ++t) {
+    if (lane + kLanes * t < chunks) v[t] = __ldg(wide + lane + kLanes * t);
+  }
+#pragma unroll
+  for (int t = 0; t < kEnds; ++t) {
+    const int x = lane + kLanes * t;
+    hb[t] = x < head ? __ldg(src + x) : 0u;
+    tb[t] = tail + x < m ? __ldg(src + tail + x) : 0u;
+  }
+#pragma unroll
+  for (int t = 0; t < kPer; ++t) {
+    const int u = lane + kLanes * t;
+    if (u < chunks) *reinterpret_cast<uint4*>(dst + head + 16 * u) = v[t];
+  }
+#pragma unroll
+  for (int t = 0; t < kEnds; ++t) {
+    const int x = lane + kLanes * t;
+    if (x < head) dst[x] = static_cast<uint8_t>(hb[t]);
+    if (tail + x < m) dst[tail + x] = static_cast<uint8_t>(tb[t]);
+  }
 }
 
 // The steps of row r (tile indexes r + lane) by context, from four
@@ -145,9 +189,9 @@ __global__ void __launch_bounds__(32)
 nybble_encode_kernel(const uint8_t* __restrict__ blocks, int64_t S,
                      const int32_t* __restrict__ lengths, uint8_t* __restrict__ rows, int64_t W,
                      int32_t* __restrict__ totals, int32_t* __restrict__ status, int B) {
-  __shared__ uint8_t tile[kEncTile];       // the tile's bytes (step i's byte)
-  __shared__ uint32_t bucket[kEncTile];    // (tile index << 8) | byte, by context, in order
-  __shared__ uint8_t code[kEncTile];       // step i: 8 | pos on a hit, 0 on a miss
+  __shared__ __align__(16) uint8_t staged[kEncTile + 32];  // the tile's bytes, at their alignment
+  __shared__ uint32_t bucket[kEncTile + 4];  // (tile index << 8) | byte, by context, in order
+  __shared__ uint8_t code[kEncTile];         // step i: 8 | pos on a hit, 0 on a miss
   const int lane = threadIdx.x;
   const int b = blockIdx.x;
   const uint32_t below = (1u << lane) - 1;
@@ -183,11 +227,8 @@ nybble_encode_kernel(const uint8_t* __restrict__ blocks, int64_t S,
   // steps 1..n-1; the tile from step t0 holds steps t0 + i, i < len
   for (int64_t t0 = 1; t0 < n; t0 += kEncTile) {
     const int len = static_cast<int>(min(static_cast<int64_t>(kEncTile), n - t0));
-    for (int i = lane; i < len; i += 32) {
-      const uint32_t v = __ldg(src + t0 + i);
-      tile[i] = static_cast<uint8_t>(v);
-      high |= v;
-    }
+    const uint8_t* tile = staged + (reinterpret_cast<uintptr_t>(src + t0) & 15);
+    stage<kEncTile, 32>(const_cast<uint8_t*>(tile), src + t0, len, lane);
     __syncwarp();
     // bucket: count, then scatter in order (lane c: context c's cursor)
     int count = 0;
@@ -195,6 +236,7 @@ nybble_encode_kernel(const uint8_t* __restrict__ blocks, int64_t S,
       uint32_t ctx, of_lane, of_mine;
       context_masks(tile, p, r, len, lane, ctx, of_lane, of_mine);
       count += __popc(of_lane);
+      if (r + lane < len) high |= tile[r + lane];
     }
     if (lane >= 16) count = 0;
     int start = count;  // exclusive prefix over the contexts
@@ -214,19 +256,17 @@ nybble_encode_kernel(const uint8_t* __restrict__ blocks, int64_t S,
       cursor += __popc(of_lane);
     }
     __syncwarp();
-    // walk: one chain per context, its row in registers
+    // walk: one chain per context, its row in registers; entries read two
+    // steps ahead (the bucket's 4 spare entries keep those reads inside)
 #if NYBBLE_ENCODE_WALK
     if (lane < 16 && count > 0) {
       const int end = start + count;
-      uint32_t e1 = bucket[start];
-      uint32_t e2 = bucket[min(start + 1, kEncTile - 1)];
+      uint32_t e1 = bucket[start], e2 = bucket[start + 1];
       for (int j = start; j < end; ++j) {
         const uint32_t e = e1;
         e1 = e2;
-        e2 = bucket[min(j + 2, kEncTile - 1)];
-        const uint64_t z = mtf(lo, hi, e);
-        const int f = __ffsll(static_cast<long long>(z));  // 8 pos + 8, 0 on a miss
-        code[e >> 8] = static_cast<uint8_t>(f ? (f >> 3) + 7 : 0);
+        e2 = bucket[j + 2];
+        code[e >> 8] = static_cast<uint8_t>(mtf(lo, hi, e));
       }
     }
 #else
@@ -280,9 +320,27 @@ __device__ __forceinline__ int64_t lane_value(int64_t v, int g) {
   return __shfl_sync(kFull, static_cast<long long>(v), g);
 }
 
-template <typename T>
-__device__ __forceinline__ T* lane_pointer(T* v, int g) {
-  return reinterpret_cast<T*>(__shfl_sync(kFull, reinterpret_cast<unsigned long long>(v), g));
+// A run of body bytes as the automaton reads it: bits 0-1 the function
+// (bit x: the state after the run from state x; state 0: a token starts
+// at the next nybble, 1: the next nybble is a literal's second half),
+// bits 8-19 / 20-31 the tokens that start inside the run from state 0 /
+// 1.  kRunIdentity is the empty run.
+constexpr uint32_t kRunIdentity = 2;
+
+// One byte: from state 0 a token at its high nybble, and one at its low
+// nybble if the high one is packed; from state 1 one at its low nybble.
+__device__ __forceinline__ uint32_t byte_run(uint32_t v) {
+  const uint32_t ph = (v >> 7) & 1, pl = (v >> 3) & 1;
+  return (ph & (pl ^ 1)) | ((pl ^ 1) << 1) | ((1 + ph) << 8) | (1u << 20);
+}
+
+// Run a, then run b.
+__device__ __forceinline__ uint32_t then(uint32_t a, uint32_t b) {
+  const uint32_t a0 = a & 1, a1 = (a >> 1) & 1;
+  const uint32_t f = ((b >> a0) & 1) | (((b >> a1) & 1) << 1);
+  const uint32_t k0 = ((a >> 8) & 0xfff) + (a0 ? b >> 20 : (b >> 8) & 0xfff);
+  const uint32_t k1 = (a >> 20) + (a1 ? b >> 20 : (b >> 8) & 0xfff);
+  return f | (k0 << 8) | (k1 << 20);
 }
 
 __global__ void __launch_bounds__(32)
@@ -290,46 +348,42 @@ nybble_decode_kernel(const uint8_t* __restrict__ flat, int64_t flat_len,
                      const int64_t* __restrict__ offsets, const int32_t* __restrict__ plens,
                      const int32_t* __restrict__ raw_lens, uint8_t* __restrict__ out, int64_t S,
                      int32_t* __restrict__ status, int B) {
-  __shared__ uint8_t body[kDecBlocks][kDecTile + 4];  // the tile's body bytes, then the next one
-  __shared__ uint8_t rec[kDecBlocks][2 * kDecTile];   // a step's record, then its byte
+  // the tile's body bytes and the next one, at their alignment
+  __shared__ __align__(16) uint8_t body[kDecBlocks][kDecTile + 48];
+  __shared__ uint8_t rec[kDecBlocks][2 * kDecTile + 4];  // a step's record, then its byte
   __shared__ __align__(128) uint2 table[kDecBlocks][16];
   const int lane = threadIdx.x;
-  const uint32_t below = (1u << lane) - 1;
   for (int e = lane; e < kDecBlocks * 16; e += 32) {
     table[e / 16][e % 16] = make_uint2(kSeedLo, kSeedHi);
   }
   // lane g < kDecBlocks: block b's state
   const int b = blockIdx.x * kDecBlocks + lane;
-  const bool own = lane < kDecBlocks && b < B;
-  int64_t n = 0;     // raw length; 0 once the block is done
-  int64_t dlen = 0;  // payload body bytes
-  int64_t base = 0;  // body offset of the tile
-  int64_t k = 1;     // the tile's first step
-  const uint8_t* data = flat;
-  uint8_t* dst = out;
+  int64_t n = 0;        // raw length; 0 once the block is done
+  int64_t dlen = 0;     // payload body bytes
+  int64_t body_at = 0;  // the body's offset in flat
+  int64_t base = 0;     // body offset of the tile
+  int64_t k = 1;        // the tile's first step
   int st = kOk;
   uint32_t prev = 0;  // the byte before the step, bit 7 dropped (its context is bits 3-6)
-  if (own) {
+  if (lane < kDecBlocks && b < B) {
     n = min(max(static_cast<int64_t>(raw_lens[b]), int64_t{0}), S);
-    dst = out + static_cast<int64_t>(b) * S;
     if (n > 0) {
       // the block's payload, clamped into flat
       const int64_t off = min(max(offsets[b], int64_t{0}), flat_len);
       const int64_t plen = min(max(static_cast<int64_t>(plens[b]), int64_t{0}), flat_len - off);
-      const uint8_t* payload = flat + off;
-      if (plen < 2 || __ldg(payload) != kType) {
+      if (plen < 2 || __ldg(flat + off) != kType) {
         st = kFormat;
         n = 0;
       } else {
-        const uint32_t first = __ldg(payload + 1);
-        dst[0] = static_cast<uint8_t>(first);
+        const uint32_t first = __ldg(flat + off + 1);
+        out[static_cast<int64_t>(b) * S] = static_cast<uint8_t>(first);
         prev = first & 0x7f;
-        data = payload + 2;
+        body_at = off + 2;
         dlen = plen - 2;
       }
     }
   }
-  uint32_t carry = 0;  // the automaton at the tile's first nybble: 0 a token, 1 a literal's second half
+  uint32_t carry = 0;  // the automaton's state at the tile's first nybble
   int taken = 0;       // records of the tile
   uint32_t last = 0;   // row offset (context x 8) of the previous step's context
   uint32_t nlo = kSeedLo, nhi = kSeedHi;  // the row it wrote (stored at the next step)
@@ -341,50 +395,64 @@ nybble_decode_kernel(const uint8_t* __restrict__ flat, int64_t flat_len,
     }
     const uint32_t busy = __ballot_sync(kFull, k < n);  // lanes past kDecBlocks have n = 0
     if (!busy) break;
-    // parse each busy block's tile into records
+    // parse each busy block's tile into records, 128 body bytes a round,
+    // four a lane
     for (int g = 0; g < kDecBlocks; ++g) {
       if (!((busy >> g) & 1)) continue;
       const int64_t gbase = lane_value(base, g), gdlen = lane_value(dlen, g);
-      const uint8_t* gdata = lane_pointer(data, g);
+      const uint8_t* gsrc = flat + lane_value(body_at, g) + gbase;
       const int len = static_cast<int>(min(static_cast<int64_t>(kDecTile), gdlen - gbase));
       const int cap = static_cast<int>(min(static_cast<int64_t>(2 * kDecTile), lane_value(n - k, g)));
       const bool end_tile = gbase + len >= gdlen;
-      uint32_t c = __shfl_sync(kFull, carry, g);
-      for (int q = lane; q <= len; q += 32) {
-        body[g][q] = gbase + q < gdlen ? __ldg(gdata + gbase + q) : 0;
-      }
+      const int align = static_cast<int>(reinterpret_cast<uintptr_t>(gsrc) & 15);
+      uint8_t* const tile = body[g] + align;
+      stage<kDecTile + 1, 32>(tile, gsrc, len + !end_tile, lane);
       __syncwarp();
-      int made = 0;
-      for (int r = 0; r < len && made < cap; r += 32) {
-        const int q = r + lane;
-        const bool valid = q < len;
-        const uint32_t v = valid ? body[g][q] : 0u;
-        const uint32_t nb = valid ? body[g][q + 1] : 0u;
-        const uint32_t hi = v >> 4, lo = v & 15;
-        const uint32_t ph = hi >> 3, pl = lo >> 3;
-        // the byte's function of the automaton: bit x = state after the
-        // byte from state x (0: a token starts at its high nybble)
-        uint32_t f = valid ? ((ph & (pl ^ 1)) | ((pl ^ 1) << 1)) : 2u;  // 2: identity
+      const uint32_t* words = reinterpret_cast<const uint32_t*>(body[g]);
+      const int shift = 8 * (align & 3);
+      uint32_t c = __shfl_sync(kFull, carry, g);
+      int made = 0, r = 0;
+      for (; r < len && made < cap; r += 128) {
+        const int q = r + 4 * lane;  // the lane's first byte
+        const int w = (align + q) >> 2;
+        const uint32_t v = q < len ? __funnelshift_r(words[w], words[w + 1], shift) : 0u;
+        const uint32_t nb = q + 4 < len + !end_tile ? tile[q + 4] : 0u;
+        const int have = min(max(len - q, 0), 4);
+        uint32_t run = kRunIdentity;
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          if (x < have) run = then(run, byte_run(v >> (8 * x)));
+        }
+        uint32_t incl = run;
 #pragma unroll
         for (int d = 1; d < 32; d <<= 1) {
-          const uint32_t e = __shfl_up_sync(kFull, f, d);  // the bytes before, composed
-          if (lane >= d) f = ((f >> (e & 1)) & 1) | (((f >> ((e >> 1) & 1)) & 1) << 1);
+          const uint32_t e = __shfl_up_sync(kFull, incl, d);  // the runs before, composed
+          if (lane >= d) incl = then(e, incl);
         }
-        const uint32_t after = (f >> c) & 1;
-        uint32_t entry = __shfl_up_sync(kFull, after, 1);
-        if (lane == 0) entry = c;
-        const bool t0 = valid && entry == 0;
-        // a literal on the body's last nybble would read past the body
-        const bool t1 = valid && (entry == 1 || ph) && !(end_tile && q == len - 1 && !pl);
-        const uint32_t b0 = __ballot_sync(kFull, t0), b1 = __ballot_sync(kFull, t1);
-        const int at = made + __popc(b0 & below) + __popc(b1 & below);
-        const uint32_t r0 = ph ? (0x80u | (hi & 7)) : (((hi & 7) << 4) | lo);
-        const uint32_t r1 = pl ? (0x80u | (lo & 7)) : (((lo & 7) << 4) | (nb >> 4));
-        if (t0 && at < cap) rec[g][at] = static_cast<uint8_t>(r0);
-        if (t1 && at + t0 < cap) rec[g][at + t0] = static_cast<uint8_t>(r1);
-        made += __popc(b0) + __popc(b1);
-        c = __shfl_sync(kFull, after, 31);
+        uint32_t excl = __shfl_up_sync(kFull, incl, 1);
+        if (lane == 0) excl = kRunIdentity;
+        uint32_t s = (excl >> c) & 1;
+        int at = made + static_cast<int>(c ? excl >> 20 : (excl >> 8) & 0xfff);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const uint32_t byte = v >> (8 * x) & 0xff;
+          const uint32_t hi = byte >> 4, lo = byte & 15;
+          const uint32_t next = (x < 3 ? v >> (8 * x + 12) : nb >> 4) & 15;
+          const bool on = x < have;
+          const bool t0 = on && s == 0;
+          const bool t1 = on && (s == 1 || (hi & 8));
+          if (t0 && at < cap) rec[g][at] = static_cast<uint8_t>(hi & 8 ? 0x80 | (hi & 7) : ((hi & 7) << 4) | lo);
+          at += t0;
+          if (t1 && at < cap) rec[g][at] = static_cast<uint8_t>(lo & 8 ? 0x80 | (lo & 7) : ((lo & 7) << 4) | next);
+          at += t1;
+          if (on) s = (byte_run(byte) >> s) & 1;
+        }
+        const uint32_t row = __shfl_sync(kFull, incl, 31);
+        made += static_cast<int>(c ? row >> 20 : (row >> 8) & 0xfff);
+        c = (row >> c) & 1;
       }
+      // a literal on the body's last nybble would read past the body
+      if (end_tile && r >= len && c == 1) --made;
       if (lane == g) {
         taken = min(made, cap);
         carry = c;
@@ -399,7 +467,7 @@ nybble_decode_kernel(const uint8_t* __restrict__ flat, int64_t flat_len,
       uint32_t t_next = recs[0];
       for (int j = 0; j < taken; ++j) {
         const uint32_t t = t_next;
-        t_next = recs[min(j + 1, 2 * kDecTile - 1)];
+        t_next = recs[j + 1];
         const uint32_t at = prev & 0x78;  // context x 8
         uint2 r = *reinterpret_cast<const uint2*>(rows + at);
 #if NYBBLE_DECODE_FORWARD
@@ -424,14 +492,14 @@ nybble_decode_kernel(const uint8_t* __restrict__ flat, int64_t flat_len,
     // flush the tile's bytes to the output rows
     for (int g = 0; g < kDecBlocks; ++g) {
       if (!((busy >> g) & 1)) continue;
-      uint8_t* gdst = lane_pointer(dst, g) + lane_value(k, g);
+      uint8_t* gdst = out + static_cast<int64_t>(blockIdx.x * kDecBlocks + g) * S + lane_value(k, g);
       const int gtaken = __shfl_sync(kFull, taken, g);
       for (int q = lane; q < gtaken; q += 32) gdst[q] = rec[g][q];
     }
     if ((busy >> lane) & 1) k += taken;
     __syncwarp();
   }
-  if (own) status[b] = st;
+  if (lane < kDecBlocks && b < B) status[b] = st;
 }
 
 }  // namespace

@@ -110,7 +110,9 @@ def _mtf_rows(row, byte, active):
 
 
 def nybble_encode_ref(blocks, lengths):
-    """Plain version of the nybble encode lane (``_encode_lane``)."""
+    """Plain version of the nybble encode lane (``_encode_lane``).  The
+    step updates its state, the step number included, in place
+    (``_Steps``: a CUDA graph on the card)."""
     _check_encode(blocks, lengths)
     B, S = blocks.shape
     dev = blocks.device
@@ -126,10 +128,12 @@ def nybble_encode_ref(blocks, lengths):
         seed = torch.tensor(list(_SEED_ROW), dtype=torch.int64, device=dev)
         table = seed.repeat(B, 16, 1)
         pending = torch.full((B,), -1, dtype=torch.int64, device=dev)
-        p = src[:, 0]
-        for i in range(1, S):
+        p = src[:, 0].clone()
+        i = torch.ones(1, dtype=torch.int64, device=dev)  # the step's byte
+
+        def step():
             active = i < n
-            s = src[:, i]
+            s = src.index_select(1, i)[:, 0]
             ctx = (p >> 3) & 15
             row = table[ar, ctx]
             eq = row == s[:, None]
@@ -141,10 +145,13 @@ def nybble_encode_ref(blocks, lengths):
             b1 = torch.where(hit, (pending << 4) | nyb, torch.where(half, p, s))
             out[ar, torch.where(count >= 1, o, W)] = b1
             out[ar, torch.where(count == 2, o + 1, W)] = s
-            o += count
-            pending = torch.where(active, torch.where(hit & ~half, nyb, -1), pending)
+            o.add_(count)
+            pending.copy_(torch.where(active, torch.where(hit & ~half, nyb, -1), pending))
             table[ar, ctx] = _mtf_rows(row, s, active)
-            p = torch.where(active, s, p)
+            p.copy_(torch.where(active, s, p))
+            i.add_(1)
+
+        _Steps(step, dev).run(S - 1)
         flush = pending >= 0  # trailing odd nybble
         out[ar, torch.where(flush, o, W)] = p
         o += flush
@@ -179,7 +186,9 @@ def _decode_start(flat, offsets, plens, raw_lens, S, type_byte):
 
 def nybble_decode_ref(flat, offsets, plens, raw_lens, S: int):
     """Plain version of the nybble decode lane (``_decode_lane``), with
-    the native decoder's errors."""
+    the native decoder's errors.  The step updates its state, the step
+    number and the nybble cursor included, in place (``_Steps``: a CUDA
+    graph on the card)."""
     B = _check_decode(flat, offsets, plens, raw_lens, S)
     dev = flat.device
     pay, n, status, alive = _decode_start(flat, offsets, plens, raw_lens, S, NYBBLES_TYPE)
@@ -189,11 +198,13 @@ def nybble_decode_ref(flat, offsets, plens, raw_lens, S: int):
         P = pay.shape[1]
         dlen = plens.long() - 2
         out[:, 0] = pay[:, 1]
-        prev = pay[:, 1]
+        prev = pay[:, 1].clone()
         seed = torch.tensor(list(_SEED_ROW), dtype=torch.int64, device=dev)
         table = seed.repeat(B, 16, 1)
         j = torch.zeros(B, dtype=torch.int64, device=dev)
-        for k in range(1, S):
+        k = torch.ones(1, dtype=torch.int64, device=dev)  # the step's output byte
+
+        def step():
             active = alive & (k < n)
             b0 = pay[ar, (2 + (j >> 1)).clamp(max=P - 1)]
             nyb = torch.where((j & 1) == 1, b0 & 15, b0 >> 4)
@@ -202,17 +213,20 @@ def nybble_decode_ref(flat, offsets, plens, raw_lens, S: int):
             b2 = pay[ar, (2 + (j2 >> 1)).clamp(max=P - 1)]
             nxt = torch.where((j2 & 1) == 1, b2 & 15, b2 >> 4)
             bad = active & (((j + (~packed).long()) >> 1) >= dlen)  # past the body
-            status = torch.where(bad, FORMAT, status)
-            alive &= ~bad
-            active &= ~bad
+            status.copy_(torch.where(bad, FORMAT, status))
+            alive.copy_(alive & ~bad)
+            act = active & ~bad
             ctx = (prev >> 3) & 15
             row = table[ar, ctx]
             o = torch.where(packed, row.gather(1, (nyb & 7)[:, None])[:, 0],
                             ((nyb & 7) << 4) | nxt)
-            table[ar, ctx] = _mtf_rows(row, o, active)
-            out[ar, torch.where(active, k, S)] = o
-            prev = torch.where(active, o, prev)
-            j = torch.where(active, j + torch.where(packed, 1, 2), j)
+            table[ar, ctx] = _mtf_rows(row, o, act)
+            out[ar, torch.where(act, k, S)] = o
+            prev.copy_(torch.where(act, o, prev))
+            j.copy_(torch.where(act, j + torch.where(packed, 1, 2), j))
+            k.add_(1)
+
+        _Steps(step, dev).run(S - 1)
     return out[:, :S].to(torch.uint8), status.to(torch.int32)
 
 

@@ -13,7 +13,10 @@ plain torch ops (``decode_tables_device``), and of
 ``device_api.decode_blocks_device``; then, for each serial codec
 (nybble, small_byte, small_nybble), of its encode lane on the blocks and
 of its decode lane on that lane's payloads (``ops/kernels/
-serial_lanes.py``).  Each time is the best of 3 chained trials
+serial_lanes.py``), and of both nybble lanes on the same size of
+one-context blocks (``deep_code_block`` seeds 0, 1, ...: nearly every
+step's context is 1, the nybble encoder's worst case; ``codec``
+"nybble_one_context").  Each time is the best of 3 chained trials
 (``timing.time_chain``, ``*_ms``; where the host's enqueue of a call
 outlasts its kernels, this is host time), and beside it the device time
 per call of back-to-back calls held behind a spin kernel
@@ -62,6 +65,12 @@ def main(argv=None) -> int:
     dev_lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
     one = torch.zeros_like(dev_blocks)
     hists = khist.block_histograms(dev_blocks, dev_lens)
+    ctx_blocks, ctx_lens = framing.split_blocks(
+        b"".join(deep_code_block(65536, seed) for seed in range(size // 65536)),
+        CodecConfig().block_size)
+    lane_inputs = [(kind, kind, dev_blocks, dev_lens) for kind in lanes.KINDS] + [
+        ("nybble_one_context", "nybble", torch.from_numpy(ctx_blocks).to(dev),
+         torch.from_numpy(ctx_lens.astype(np.int32)).to(dev))]
 
     root = str(sys.modules["data_compression_tpu_torch"].__path__[0])
 
@@ -92,17 +101,17 @@ def main(argv=None) -> int:
             row["compress_gbps"] = size / row["compress_ms"] / 1e6
             row["decompress_gbps"] = size / row["decompress_ms"] / 1e6
             print(json.dumps(row), flush=True)
-        for kind in lanes.KINDS:
+        for label, kind, lane_blocks, lane_lens in lane_inputs:
             enc, dec = lanes.ENCODERS[kind], lanes.DECODERS[kind]
-            rows, totals, status = enc(dev_blocks, dev_lens)
+            rows, totals, status = enc(lane_blocks, lane_lens)
             ok = status == lanes.OK
             plens = totals[ok]
             dargs = (kcompact.compact_blocks(rows[ok], plens),
-                     torch.cumsum(plens, 0, dtype=torch.int64) - plens, plens, dev_lens[ok],
+                     torch.cumsum(plens, 0, dtype=torch.int64) - plens, plens, lane_lens[ok],
                      blocks.shape[1])
-            row = {"root": root, "rep": rep, "codec": kind, "mib": args.mib,
+            row = {"root": root, "rep": rep, "codec": label, "mib": args.mib,
                    "blocks": int(ok.sum()), "card": card}
-            for name, step in (("encode", lambda: enc(dev_blocks, dev_lens)),
+            for name, step in (("encode", lambda: enc(lane_blocks, lane_lens)),
                                ("decode", lambda: dec(*dargs))):
                 row[f"{name}_ms"] = ms(step, LANE_ITERS)
                 row[f"{name}_device_ms"] = timing.device_ms(step, LANE_ITERS)

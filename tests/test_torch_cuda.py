@@ -48,9 +48,9 @@ from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
 from torch_cases import (
     LANE_KINDS,
     decode_table_rows,
+    decoded_as_native,
     hist_blocks,
     lane_blocks,
-    small_decoded_as_native,
 )
 
 pytestmark = pytest.mark.cuda
@@ -1093,16 +1093,56 @@ def test_small_lanes_on_long_blocks_match_the_native_runtime(cuda, kind, S, past
 @pytest.mark.parametrize("direction", ["encode", "decode"])
 def test_lane_occupancy_reads_the_launch(cuda, kind, direction):
     """Each lane kernel's occupancy: at least one CTA an SM, whole blocks a
-    CTA; the small encoders and decoders hold every one of 1,026 blocks
-    (64 MiB at 64 KiB and the two edge blocks) in one wave."""
+    CTA; every lane holds every one of 1,026 blocks (64 MiB at 64 KiB and
+    the two edge blocks) in one wave."""
     occ = lanes.lane_occupancy(f"{kind}_{direction}")
     assert occ["ctas_per_sm"] >= 1 and occ["blocks_per_cta"] >= 1
     assert occ["threads_per_cta"] % occ["blocks_per_cta"] == 0 and occ["smem_per_cta"] > 0
     assert occ["layout"] == lanes.layout_text(occ["threads_per_cta"], occ["blocks_per_cta"],
                                               occ["smem_per_cta"])
-    if kind != "nybble":
-        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-        assert occ["ctas_per_sm"] * occ["blocks_per_cta"] * sms >= 1026
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert occ["ctas_per_sm"] * occ["blocks_per_cta"] * sms >= 1026
+
+
+@pytest.mark.parametrize("S", [1, 4097, 65536, 1 << 20])
+def test_nybble_lanes_match_the_native_drivers(cuda, S):
+    """The nybble lanes byte for byte against the native drivers on the
+    rows of ``lane_blocks`` (lengths 0, 1, 2 and below S, bytes >= 0x80,
+    one byte value) and on rows whose every step has one context (bytes
+    8-15: context 1, the encoder's whole block one chain), at the
+    wrappers' row width S + 2, exactly n + 2 for a full row: statuses,
+    totals and payloads; then the decode of the native payloads."""
+    blocks, lengths = lane_blocks("nybble", S, 101)
+    one = np.random.default_rng(102).integers(8, 16, (2, S), dtype=np.uint8)
+    blocks = np.concatenate([blocks, one])
+    lengths = np.concatenate([lengths, [S, max(S - 5, 0)]])
+    keep, raws, payloads = _native_payloads("nybble", blocks, lengths)
+    rows, totals, status = lanes.nybble_encode(torch.from_numpy(blocks).to(cuda),
+                                               torch.from_numpy(lengths).to(cuda))
+    assert rows.shape[1] == S + 2
+    assert status.cpu().tolist() == [lanes.OK if i in keep else lanes.INPUT
+                                     for i in range(len(lengths))]
+    tot, rows = totals.cpu().numpy(), rows.cpu().numpy()
+    assert [rows[i, : tot[i]].tobytes() for i in keep] == payloads
+    out, st = lanes.nybble_decode(*_lane_flat(payloads, cuda),
+                                  torch.tensor([len(r) for r in raws], dtype=torch.int32,
+                                               device=cuda), S)
+    assert st.cpu().tolist() == [lanes.OK] * len(keep)
+    out = out.cpu().numpy()
+    assert [out[k, : len(r)].tobytes() for k, r in enumerate(raws)] == raws
+
+
+def test_nybble_decode_lane_matches_the_native_runtime_on_crafted_and_random_payloads(cuda):
+    """64 KiB rows of ``corpora.payload_mix``: token streams ending at the
+    body's end, one step past it, or with a literal whose second nybble
+    lies just past it; real payloads with flipped bytes or cut short;
+    random bodies: statuses and OK rows equal the native decoder's."""
+    S = 65536
+    real = native.nybble_encode(enwik_like(S, 98))
+    payloads, raws = payload_mix("nybble", S, 64, 99, real)
+    out, st = lanes.nybble_decode(*_lane_flat(payloads, cuda),
+                                  torch.tensor(raws, dtype=torch.int32, device=cuda), S)
+    assert 0 < decoded_as_native("nybble", payloads, raws, out, st) < len(payloads)
 
 
 def _guarded(n, fill, dev):
@@ -1216,7 +1256,7 @@ def _small_decode_against_native(kind, payloads, raws, S, dev):
     decoder block by block: equal statuses, equal OK rows; -> OK blocks."""
     out, st = lanes.DECODERS[kind](*_lane_flat(payloads, dev),
                                    torch.tensor(raws, dtype=torch.int32, device=dev), S)
-    return small_decoded_as_native(kind, payloads, raws, out, st)
+    return decoded_as_native(kind, payloads, raws, out, st)
 
 
 SMALL_KINDS = ("small_byte", "small_nybble")

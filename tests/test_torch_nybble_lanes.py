@@ -30,7 +30,7 @@ from torch_cases import lane_blocks
 
 SEED_ROW = list(b" etaoins")
 TYPE = 0xAF
-TILE = 96  # model tile: three rows of 32 steps (the kernels take 4096)
+TILE = 96  # model tile: three encode rows of 32 steps (the kernels take 4096)
 
 
 def _mtf(row, v):
@@ -84,24 +84,56 @@ def model_encode(raw: bytes, tile: int = TILE) -> bytes:
     return bytes(out)
 
 
-def _token_starts(body: bytes, carry: int):
-    """Per body byte, the automaton's entry state (0: a token starts at
-    its high nybble, 1: it is a literal's second half) by composing the
-    bytes' functions (bit x: the state after the byte from state x); ->
-    (entry states, the state after the last byte)."""
-    def fn(v):
-        ph, pl = v >> 7, (v >> 3) & 1
-        return (ph & (pl ^ 1)) | ((pl ^ 1) << 1)
-
-    composed, entries = 2, []  # 2: the identity
-    for v in body:
-        entries.append((composed >> carry) & 1)
-        f = fn(v)
-        composed = ((f >> (composed & 1)) & 1) | (((f >> ((composed >> 1) & 1)) & 1) << 1)
-    return entries, (composed >> carry) & 1
+IDENTITY = (0, 1, 0, 0)  # a run of no bytes: (state after from 0, from 1, tokens from 0, from 1)
 
 
-def model_decode(payload: bytes, n: int, tile: int = TILE):
+def _byte_run(v):
+    """One body byte as the automaton reads it (state 0: a token starts at
+    its high nybble; 1: the high nybble is a literal's second half)."""
+    ph, pl = v >> 7, (v >> 3) & 1
+    return (ph & (pl ^ 1), pl ^ 1, 1 + ph, 1)
+
+
+def _then(a, b):
+    """Run a, then run b."""
+    return (b[a[0]], b[a[1]], a[2] + b[2 + a[0]], a[3] + b[2 + a[1]])
+
+
+def _parse(chunk: bytes, nxt: int, carry: int, end: bool, lanes=32, per=4):
+    """A tile's records as the kernel makes them: rows of ``lanes`` x
+    ``per`` bytes, each lane's run composed, a scan across the lanes,
+    each lane's tokens at the scan's count; a literal on the body's last
+    nybble dropped.  -> (records, the state after the tile)."""
+    recs, c = [], carry
+    for r in range(0, len(chunk), lanes * per):
+        runs = []
+        for lane in range(lanes):
+            run = IDENTITY
+            for v in chunk[r + per * lane: r + per * lane + per]:
+                run = _then(run, _byte_run(v))
+            runs.append(run)
+        excl, made = IDENTITY, len(recs)
+        for lane in range(lanes):
+            seg = chunk[r + per * lane: r + per * lane + per]
+            s = excl[c]
+            assert made + excl[2 + c] == len(recs)  # the scan's count: where the lane writes
+            for x, v in enumerate(seg):
+                q = r + per * lane + x
+                nb = chunk[q + 1] if q + 1 < len(chunk) else nxt
+                hi, lo = v >> 4, v & 15
+                if s == 0:
+                    recs.append(0x80 | (hi & 7) if hi & 8 else ((hi & 7) << 4) | lo)
+                if s == 1 or hi & 8:
+                    recs.append(0x80 | (lo & 7) if lo & 8 else ((lo & 7) << 4) | (nb >> 4))
+                s = _byte_run(v)[s]
+            excl = _then(excl, runs[lane])
+        c = excl[c]
+    if end and c == 1:
+        recs.pop()  # its second nybble would lie past the body
+    return recs, c
+
+
+def model_decode(payload: bytes, n: int, tile: int = TILE, lanes: int = 32):
     """The decode kernel's decomposition on one block; -> (bytes or None
     on FORMAT, the step at which FORMAT is found)."""
     if n == 0:
@@ -118,19 +150,8 @@ def model_decode(payload: bytes, n: int, tile: int = TILE):
         if base >= dlen:
             return None, k
         ln = min(tile, dlen - base)
-        chunk = body[base: base + ln]
         nxt = body[base + ln] if base + ln < dlen else 0
-        entries, after = _token_starts(chunk, carry)
-        recs = []
-        for q, (v, entry) in enumerate(zip(chunk, entries)):
-            hi, lo = v >> 4, v & 15
-            nb = chunk[q + 1] if q + 1 < ln else nxt
-            if entry == 0:
-                recs.append(0x80 | (hi & 7) if hi & 8 else ((hi & 7) << 4) | lo)
-            if entry == 1 or hi & 8:
-                if not lo & 8 and base + q + 1 >= dlen:
-                    continue  # a literal's second nybble past the body
-                recs.append(0x80 | (lo & 7) if lo & 8 else ((lo & 7) << 4) | (nb >> 4))
+        recs, carry = _parse(body[base: base + ln], nxt, carry, base + ln >= dlen, lanes)
         recs = recs[: n - k]
         for t in recs:  # the chain
             row = table[(prev >> 3) & 15]
@@ -138,7 +159,7 @@ def model_decode(payload: bytes, n: int, tile: int = TILE):
             _mtf(row, o)
             out.append(o)
             prev = o
-        carry, base, k = after, base + ln, k + len(recs)
+        base, k = base + ln, k + len(recs)
     return bytes(out), None
 
 
@@ -205,8 +226,8 @@ def _decode_inputs():
     return cases + list(zip(payloads, raws))
 
 
-@pytest.mark.parametrize("tile", [32, TILE, 4096])
-def test_decode_model_equals_the_native_decoder(tile):
+@pytest.mark.parametrize("tile,lanes", [(32, 2), (TILE, 4), (4096, 32)])
+def test_decode_model_equals_the_native_decoder(tile, lanes):
     """The token-start scan and the chain over records decode what the
     native decoder decodes and refuse what it refuses; the step at which
     the model finds FORMAT is the one at which the C returns it: the
@@ -214,7 +235,7 @@ def test_decode_model_equals_the_native_decoder(tile):
     it one step later."""
     formats = 0
     for payload, n in _decode_inputs():
-        got, step = model_decode(payload, n, tile)
+        got, step = model_decode(payload, n, tile, lanes)
         want = _native_decode(payload, n)
         assert got == want, (payload[:8], n)
         if got is None:
@@ -265,3 +286,79 @@ def test_plain_lanes_on_the_decomposition_inputs():
         assert int(st[i]) == (lanes.FORMAT if want is None else lanes.OK), i
         if want is not None:
             assert out[i, :n].numpy().tobytes() == want, i
+
+
+def test_longest_context_chain_counts_the_encoders_serial_steps():
+    """``tools.nybble_variants.longest_context_chain``: the most steps of
+    one context (step i's context: byte i - 1's bits 3-6) in any block,
+    within each block's length; the deep-code block's chain is nearly the
+    whole block."""
+    from data_compression_tpu_torch.tools.nybble_variants import longest_context_chain
+
+    rng = np.random.default_rng(78)
+    blocks = rng.integers(0, 128, (4, 300), dtype=np.uint8)
+    blocks[1, :] = 8  # every step in context 1
+    lengths = np.array([300, 200, 1, 0])
+    want = 0
+    for row, n in zip(blocks, lengths):
+        counts = [0] * 16
+        for i in range(1, n):
+            counts[(row[i - 1] >> 3) & 15] += 1
+        want = max(want, max(counts))
+    assert longest_context_chain(blocks, lengths) == want == 199
+    deep = np.frombuffer(deep_code_block(65536, 7), np.uint8)[None, :]
+    assert longest_context_chain(deep, np.array([65536])) > 0.97 * 65535
+
+
+def test_variants_tool_needs_a_card(monkeypatch):
+    """The build-variant timing tool never falls back to the CPU."""
+    from data_compression_tpu_torch.tools import nybble_variants
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        nybble_variants.main(["--mib", "1"])
+
+
+def _byte_perm(x, y, s):
+    """CUDA's ``__byte_perm``: result byte k is byte (s >> 4k) & 7 of the
+    eight bytes of y:x."""
+    pool = (y << 32) | x
+    return sum(((pool >> (8 * ((s >> (4 * k)) & 7))) & 0xFF) << (8 * k) for k in range(4))
+
+
+def _mtf_words(lo, hi, v):
+    """The kernels' move-to-front on a row held in two 32-bit words
+    (``csrc/nybble_lanes.cu`` ``mtf``), in 32-bit arithmetic; -> (lo, hi,
+    the step's code)."""
+    u32 = 0xFFFFFFFF
+    splat = (v * 0x01010101) & u32
+    xl, xh = lo ^ splat, hi ^ splat
+    zl = ~(xl + 0x7F7F7F7F) & 0x80808080 & u32
+    zh = ~(xh + 0x7F7F7F7F) & 0x80808080 & u32
+    z = (zh << 32) | zl
+    m = z ^ ((z - 1) & 0xFFFFFFFFFFFFFFFF)
+    ml, mh = m & u32, m >> 32
+    sl, sh = _byte_perm(v, lo, 0x6540), _byte_perm(lo, hi, 0x6543)
+    code = ((((zl >> 7) | (zh >> 3)) * 0x8C9DAEBF) & u32) >> 28
+    return (lo & ~ml & u32) | (sl & ml), (hi & ~mh & u32) | (sh & mh), code
+
+
+def test_row_arithmetic_matches_the_list_model():
+    """The kernels' two-word move-to-front (a zero-byte test of the row
+    XOR the byte's splat, the prefix mask from the match's lowest bit, a
+    merge with the row shifted by two ``__byte_perm``) and the code made
+    from the match bits by a multiply give the list model's row and (hit,
+    pos) code on
+    every position and on misses, for rows of distinct 7-bit bytes."""
+    rng = np.random.default_rng(79)
+    for _ in range(400):
+        row = [int(x) for x in rng.permutation(128)[:8]]
+        v = row[int(rng.integers(0, 8))] if rng.random() < 0.7 else int(rng.integers(0, 128))
+        lo = sum(b << (8 * k) for k, b in enumerate(row[:4]))
+        hi = sum(b << (8 * k) for k, b in enumerate(row[4:]))
+        want = list(row)
+        pos = _mtf(want, v)
+        nlo, nhi, code = _mtf_words(lo, hi, v)
+        got = [(nlo >> (8 * k)) & 0xFF for k in range(4)] + [(nhi >> (8 * k)) & 0xFF for k in range(4)]
+        assert got == want, (row, v)
+        assert code == (8 | pos if pos >= 0 else 0)

@@ -28,7 +28,7 @@ from data_compression_tpu_torch.utils.corpora import (
     tight_span_payload,
 )
 from data_compression_tpu_torch.utils.debug import CodecStats
-from torch_cases import LANE_KINDS, lane_blocks, small_decoded_as_native
+from torch_cases import LANE_KINDS, decoded_as_native, lane_blocks
 
 # block sizes: the slot-wrap rows of tests/test_small.py (5000 bytes of
 # 1-23 for small_byte, 4000 of 1-15 for small_nybble)
@@ -182,7 +182,7 @@ def test_plain_small_decoders_on_the_deepest_words(kind):
     real = getattr(native, f"{kind}_encode")(enwik_like(S, 85))
     payloads, raws = payload_mix(kind, S, 8, 86, real)
     out, status = lanes.DECODERS[kind](*_flat(payloads), torch.tensor(raws, dtype=torch.int32), S)
-    small_decoded_as_native(kind, payloads, raws, out, status)
+    decoded_as_native(kind, payloads, raws, out, status)
 
 
 def test_lane_checks():

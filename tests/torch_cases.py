@@ -112,8 +112,8 @@ def lane_blocks(kind, S, seed, B=None):
     return blocks, lengths
 
 
-def small_decoded_as_native(kind, payloads, raws, out, status):
-    """A small decoder's ``out`` rows and ``status`` (one a payload)
+def decoded_as_native(kind, payloads, raws, out, status):
+    """A serial decoder's ``out`` rows and ``status`` (one a payload)
     against the native decoder block by block: FORMAT where the native
     decoder raises, else OK and its bytes; -> the number of OK blocks."""
     from data_compression_tpu_torch import native
