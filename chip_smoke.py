@@ -629,11 +629,12 @@ LANES = [
 # add and mask, the low word's borrow, the high word's (IADD3.X), its
 # XOR and the merge: 7 operations, no load.  Its steps are the longest
 # context chain of any block, counted on the host.
-# nybble decode (was (1, 17)): from the row's load, the byte
-# (`__byte_perm` or the record's literal), then the move-to-front the
-# next load waits on through the row's store: the splat's XOR, the
-# zero-byte add and mask, the borrows (2), the XOR and the merge, the
-# store's data: 9 operations and the load.
+# nybble decode (was (1, 17)): from one row load to the next, the
+# forwarded row's select, the byte (`__byte_perm`, predicated on the
+# record), the context's row offset (`& 0x78`) and the address: 4
+# operations and the load; the move-to-front that the next select also
+# waits on (the splat, XOR, zero-byte add and mask, the borrows (2), XOR,
+# merge: 9 operations) is shorter at these costs.
 # small encode: the target key from the index, the compares
 # and offers (2), the two-level minimum (2), the warp's minimum
 # (`__reduce_min_sync`), the test and the next index (2) (scheme B: the
@@ -646,7 +647,7 @@ LANES = [
 # the length (2), its test, the last three nybbles (4), the byte by
 # parity (4), the row offset, select, merge and address (4): 15 compiled;
 # it keeps the 14 it had, as a floor only goes down.
-LANE_CHAIN = {"nybble_encode": (0, 7), "nybble_decode": (1, 9),
+LANE_CHAIN = {"nybble_encode": (0, 7), "nybble_decode": (1, 4),
               "small_byte_encode": (0, 8), "small_byte_decode": (1, 5),
               "small_nybble_encode": (0, 9), "small_nybble_decode": (1, 14)}
 SHARED_LOAD_CYCLES = 30  # H100 shared-memory load latency, about 30 cycles (assumed)
@@ -840,6 +841,7 @@ def one_context_phase(dev, card: str) -> dict:
     from data_compression_tpu_torch import CodecConfig, framing
     from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
     from data_compression_tpu_torch.tools import timing
+    from data_compression_tpu_torch.tools.nybble_variants import longest_context_chain
     from data_compression_tpu_torch.utils.corpora import deep_code_block
 
     one = b"".join(deep_code_block(LANE_EDGE_BYTES, seed) for seed in range(1024))
@@ -855,14 +857,6 @@ def one_context_phase(dev, card: str) -> dict:
                        "one_context_chain_steps": int(lengths.max()) - 1}}
 
 
-def longest_context_chain(blocks, lengths) -> int:
-    """The nybble encoder's serial chain: the most steps of one context in
-    any block (``tools.nybble_variants.longest_context_chain``)."""
-    from data_compression_tpu_torch.tools.nybble_variants import longest_context_chain as count
-
-    return count(blocks, lengths)
-
-
 def lane_phase(data: bytes, dev, card: str) -> dict:
     """Phase 8a: each lane kernel against the native batch drivers on the
     whole 64 MiB input, on 64 KiB of one byte value and on 64 KiB of
@@ -875,6 +869,7 @@ def lane_phase(data: bytes, dev, card: str) -> dict:
     from data_compression_tpu_torch import CodecConfig, framing
     from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
     from data_compression_tpu_torch.tools import timing
+    from data_compression_tpu_torch.tools.nybble_variants import longest_context_chain
 
     blocks, lengths = framing.split_blocks(data, CodecConfig().block_size)
     rng = np.random.default_rng(SEED)

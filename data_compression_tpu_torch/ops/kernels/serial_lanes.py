@@ -593,9 +593,13 @@ def layout_text(threads_per_cta: int, blocks_per_cta: int, smem_per_cta: int) ->
     """A lane launch's block-to-thread mapping in words, from the numbers
     ``lane_occupancy`` reads off the kernel."""
     per_block = threads_per_cta // blocks_per_cta
-    who = ("a warp" if per_block == 32 else "a thread" if per_block == 1
-           else f"{per_block // 32} warps" if per_block % 32 == 0 else f"{per_block} threads")
-    return (f"{who} a block, {blocks_per_cta} block(s) a CTA, "
+    if threads_per_cta == 32 and 1 < per_block < 32:
+        who = f"a warp for {blocks_per_cta} blocks (one lane a chain)"
+    else:
+        who = ("a warp a block" if per_block == 32 else "a thread a block" if per_block == 1
+               else f"{per_block // 32} warps a block" if per_block % 32 == 0
+               else f"{per_block} threads a block")
+    return (f"{who}, {blocks_per_cta} block(s) a CTA, "
             f"{smem_per_cta:,} B of shared memory a CTA")
 
 

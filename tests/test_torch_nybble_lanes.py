@@ -362,3 +362,11 @@ def test_row_arithmetic_matches_the_list_model():
         got = [(nlo >> (8 * k)) & 0xFF for k in range(4)] + [(nhi >> (8 * k)) & 0xFF for k in range(4)]
         assert got == want, (row, v)
         assert code == (8 | pos if pos >= 0 else 0)
+
+
+def test_layout_words_for_a_warp_of_blocks():
+    """A decode warp that holds more than one block (one lane a chain, the
+    whole warp parsing each block's tile in turn) is named so, not as a
+    fraction of a warp a block."""
+    assert lanes.layout_text(32, 2, 12672) == (
+        "a warp for 2 blocks (one lane a chain), 2 block(s) a CTA, 12,672 B of shared memory a CTA")
