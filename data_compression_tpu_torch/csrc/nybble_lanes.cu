@@ -44,10 +44,11 @@
 // block is one chain.  What a step reads off the payload does not depend
 // on the chain: nybble j + 1 starts a token if j started a packed one or
 // was a literal's second half, a two-state automaton.  kDecBlocks blocks
-// a warp, in tiles of the payload body:
-//   * parse: the warp stages the tile's body in shared memory (and the
-//     byte after it), composes the automaton's per-byte functions by a
-//     warp scan, and writes one record a step: 0x80 | pos for a packed
+// a warp (2: about one warp a scheduler, two chains in its lockstep; 1,
+// 4 and 8 measured slower), in tiles of the payload body:
+//   * parse: the warp stages each block's tile of body in shared memory
+//     (and the byte after it), composes the automaton's runs, four bytes
+//     a lane, by a warp scan, and writes one record a step: 0x80 | pos for a packed
 //     token, the 7-bit literal for a literal.  A token that would read
 //     past the body (a literal on the body's last nybble) is not
 //     recorded, and a block whose records run out before its raw length
