@@ -621,9 +621,9 @@ LANES = [
 ]
 # One step's serial chain: (shared-memory loads, dependent integer
 # operations) from one step's state to the next's, read off the SASS of
-# the committed kernels (`cuobjdump -sass`, `tools.nybble_variants
-# --sass`); a floor only goes down, so an entry keeps its old count where
-# the compiled chain is longer.
+# the committed kernels (`cuobjdump -sass` of the library that
+# `ops/kernels/_build.py` builds); a floor only goes down, so an entry
+# keeps its old count where the compiled chain is longer.
 # nybble encode (one context's chain, its row in two registers; was
 # (1, 12) with the row in shared memory): the splat's XOR, the zero-byte
 # add and mask, the low word's borrow, the high word's (IADD3.X), its
@@ -841,13 +841,12 @@ def one_context_phase(dev, card: str) -> dict:
     from data_compression_tpu_torch import CodecConfig, framing
     from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
     from data_compression_tpu_torch.tools import timing
-    from data_compression_tpu_torch.tools.nybble_variants import longest_context_chain
     from data_compression_tpu_torch.utils.corpora import deep_code_block
 
     one = b"".join(deep_code_block(LANE_EDGE_BYTES, seed) for seed in range(1024))
     blocks, lengths = framing.split_blocks(one, CodecConfig().block_size)
     fb, fl, _, _, _, dargs = lane_check("nybble", blocks, lengths, dev, "64 MiB of one context")
-    chain = longest_context_chain(blocks, lengths)
+    chain = lanes.longest_context_chain(blocks, lengths)
     enc_ms = timing.device_ms(lambda: lanes.nybble_encode(fb, fl), 4)
     dec_ms = timing.device_ms(lambda: lanes.nybble_decode(*dargs), 4)
     log(f"lanes nybble, one context ({len(lengths)} deep-code blocks, longest context chain "
@@ -869,7 +868,6 @@ def lane_phase(data: bytes, dev, card: str) -> dict:
     from data_compression_tpu_torch import CodecConfig, framing
     from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
     from data_compression_tpu_torch.tools import timing
-    from data_compression_tpu_torch.tools.nybble_variants import longest_context_chain
 
     blocks, lengths = framing.split_blocks(data, CodecConfig().block_size)
     rng = np.random.default_rng(SEED)
@@ -898,7 +896,7 @@ def lane_phase(data: bytes, dev, card: str) -> dict:
                  "decode": int(n.max()) - 1 if kind == "nybble" else int(plens.max()) - 2}
         extra = {"encode": {}, "decode": {}}
         if kind == "nybble":
-            steps["encode"] = longest_context_chain(blocks, lengths)
+            steps["encode"] = lanes.longest_context_chain(blocks, lengths)
             extra = one_context_phase(dev, card)
         moved = {"encode": int(n.sum()) + nbytes_of(fl) + int(tot.sum()) + 8 * len(n),
                  "decode": int(plens.sum()) + 16 * len(plens) + int(n[tot > 0].sum())

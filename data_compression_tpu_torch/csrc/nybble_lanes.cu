@@ -43,23 +43,30 @@
 // Decode: the context of step k is the byte decoded at step k - 1, so a
 // block is one chain.  What a step reads off the payload does not depend
 // on the chain: nybble j + 1 starts a token if j started a packed one or
-// was a literal's second half, a two-state automaton.  kDecBlocks blocks
-// a warp (2: about one warp a scheduler, two chains in its lockstep; 1,
-// 4 and 8 measured slower), in tiles of the payload body:
-//   * parse: the warp stages each block's tile of body in shared memory
-//     (and the byte after it), composes the automaton's runs, four bytes
-//     a lane, by a warp scan, and writes one record a step: 0x80 | pos for a packed
-//     token, the 7-bit literal for a literal.  A token that would read
-//     past the body (a literal on the body's last nybble) is not
-//     recorded, and a block whose records run out before its raw length
-//     is FORMAT, as the C returns at that step;
-//   * chain: lane g walks block g's records at addresses that do not
-//     depend on its state, without a branch: the row of the context
-//     (one shared load at (prev & 0x78), the row just written forwarded
-//     if the context repeats), the byte by `__byte_perm` or the literal,
-//     the same move-to-front as the encoder; each byte goes back over its
-//     record;
-//   * flush: the warp copies the tile's bytes to the output row.
+// was a literal's second half, a two-state automaton.  So a CTA of two
+// warps decodes kDecBlocks = 2 blocks in tiles of their payload bodies,
+// a pipeline of two stages in step by a CTA barrier a tile:
+//   * the parse warp makes tile t's records while the chain walks tile
+//     t - 1's: it stages each block's tile of body in shared memory (and
+//     the byte after it), composes the automaton's runs, four bytes a
+//     lane, by a warp scan, and writes one record a step into the tile's
+//     half of a double buffer: 0x80 | pos for a packed token, the 7-bit
+//     literal for a literal.  A token that would read past the body (a
+//     literal on the body's last nybble) is not recorded, and a block
+//     whose records run out before its raw length is FORMAT, as the C
+//     returns at that step.  The records a tile takes, and so where the
+//     next starts, follow from the parse alone;
+//   * chain: lane g of the other warp walks block g's records at
+//     addresses that do not depend on its state, without a branch: the
+//     row of the context (one shared load at (prev & 0x78), the row just
+//     written forwarded if the context repeats), the byte by
+//     `__byte_perm` or the literal, the same move-to-front as the
+//     encoder; each byte goes back over its record;
+//   * the parse warp copies tile t - 2's bytes to the output rows before
+//     it parses tile t into that half, and the last tile's after the
+//     loop.
+// Which warp walks the chain follows its warp slot, so that the chains of
+// an SM's CTAs spread over the four schedulers.
 // Bounds: the encoder checks up front that its row holds n + 2 bytes (the
 // C's per-step check; a step emits two bytes only after one that emitted
 // none, so a payload takes at most n + 1) and writes nothing past it,
@@ -68,30 +75,9 @@
 // output row.  Status per block: 0 ok, 1 a byte >= 0x80 (encode), 2 row
 // too small (encode), 3 bad or truncated payload (decode).
 // No host read and no allocation: launches go on the caller's stream.
-//
-// Build-time knobs (the defaults are the library's; `tools.nybble_variants`
-// builds the others to measure a design choice alone):
-//   NYBBLE_DECODE_BLOCKS   blocks a decode warp (chains in its lockstep)
-//   NYBBLE_DECODE_FORWARD  1: the row just written is forwarded when the
-//                          context repeats; 0: stored, then loaded
-//   NYBBLE_ENCODE_WALK / NYBBLE_DECODE_CHAIN  0: skip the serial part
-//                          (output wrong; the rest's cost alone)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#ifndef NYBBLE_DECODE_BLOCKS
-#define NYBBLE_DECODE_BLOCKS 2
-#endif
-#ifndef NYBBLE_DECODE_FORWARD
-#define NYBBLE_DECODE_FORWARD 1
-#endif
-#ifndef NYBBLE_ENCODE_WALK
-#define NYBBLE_ENCODE_WALK 1
-#endif
-#ifndef NYBBLE_DECODE_CHAIN
-#define NYBBLE_DECODE_CHAIN 1
-#endif
 
 namespace {
 
@@ -101,9 +87,8 @@ constexpr int kOk = 0, kInput = 1, kCapacity = 2, kFormat = 3;
 // " etaoins", byte k = row position k (nybble_compression.c:546-562)
 constexpr uint32_t kSeedLo = 0x61746520u, kSeedHi = 0x736e696fu;
 constexpr int kEncTile = 4096;  // encode: steps a tile
-constexpr int kDecBlocks = NYBBLE_DECODE_BLOCKS;
-constexpr int kDecTile = 4096 / kDecBlocks;  // decode: body bytes a tile, per block
-static_assert(kDecBlocks >= 1 && kDecBlocks <= 32 && kDecTile % 32 == 0, "decode layout");
+constexpr int kDecBlocks = 2;     // decode: blocks a CTA (chains in the chain warp's lockstep)
+constexpr int kDecTile = 2048;    // decode: body bytes a tile, per block
 
 // Move-to-front of byte v (byte 0 of v; the row's bytes and v below 0x80)
 // in the row (lo, hi), little-endian: bytes 0..pos shift up one place and
@@ -259,7 +244,6 @@ nybble_encode_kernel(const uint8_t* __restrict__ blocks, int64_t S,
     __syncwarp();
     // walk: one chain per context, its row in registers; entries read two
     // steps ahead (the bucket's 4 spare entries keep those reads inside)
-#if NYBBLE_ENCODE_WALK
     if (lane < 16 && count > 0) {
       const int end = start + count;
       uint32_t e1 = bucket[start], e2 = bucket[start + 1];
@@ -270,9 +254,6 @@ nybble_encode_kernel(const uint8_t* __restrict__ blocks, int64_t S,
         code[e >> 8] = static_cast<uint8_t>(mtf(lo, hi, e));
       }
     }
-#else
-    for (int i = lane; i < len; i += 32) code[i] = static_cast<uint8_t>(tile[i] & 8);
-#endif
     __syncwarp();
     // emit, a row of 32 steps at a time
     for (int r = 0; r < len; r += 32) {
@@ -344,164 +325,208 @@ __device__ __forceinline__ uint32_t then(uint32_t a, uint32_t b) {
   return f | (k0 << 8) | (k1 << 20);
 }
 
-__global__ void __launch_bounds__(32)
+// Copies a tile's bytes (the chain wrote each step's byte over its
+// record in `recs`) to the output rows of its busy blocks, by the parse
+// warp.
+__device__ __forceinline__ void flush(uint8_t (*recs)[2 * kDecTile + 4], uint32_t busy,
+                                      const int* taken, const int64_t* first_step,
+                                      uint8_t* __restrict__ out, int64_t S, int lane) {
+  for (int g = 0; g < kDecBlocks; ++g) {
+    if (!((busy >> g) & 1)) continue;
+    uint8_t* gdst = out + static_cast<int64_t>(blockIdx.x * kDecBlocks + g) * S + first_step[g];
+    for (int q = lane; q < taken[g]; q += 32) gdst[q] = recs[g][q];
+  }
+}
+
+__global__ void __launch_bounds__(64)
 nybble_decode_kernel(const uint8_t* __restrict__ flat, int64_t flat_len,
                      const int64_t* __restrict__ offsets, const int32_t* __restrict__ plens,
                      const int32_t* __restrict__ raw_lens, uint8_t* __restrict__ out, int64_t S,
                      int32_t* __restrict__ status, int B) {
   // the tile's body bytes and the next one, at their alignment
   __shared__ __align__(16) uint8_t body[kDecBlocks][kDecTile + 48];
-  __shared__ uint8_t rec[kDecBlocks][2 * kDecTile + 4];  // a step's record, then its byte
+  // two tiles of records in flight (tile t in half t & 1): a step's
+  // record, then its byte
+  __shared__ uint8_t rec[2][kDecBlocks][2 * kDecTile + 4];
   __shared__ __align__(128) uint2 table[kDecBlocks][16];
-  const int lane = threadIdx.x;
-  for (int e = lane; e < kDecBlocks * 16; e += 32) {
+  __shared__ uint32_t tile_busy[2];              // the blocks with records in the half's tile
+  __shared__ int tile_taken[2][kDecBlocks];      // their records
+  __shared__ int64_t tile_step[2][kDecBlocks];   // the step of their first record
+  __shared__ int64_t setup_n[kDecBlocks], setup_dlen[kDecBlocks], setup_at[kDecBlocks];
+  __shared__ uint32_t setup_prev[kDecBlocks];
+  __shared__ int setup_st[kDecBlocks];
+  __shared__ int chain_warp;
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int e = tid; e < kDecBlocks * 16; e += 64) {
     table[e / 16][e % 16] = make_uint2(kSeedLo, kSeedHi);
   }
-  // lane g < kDecBlocks: block b's state
-  const int b = blockIdx.x * kDecBlocks + lane;
-  int64_t n = 0;        // raw length; 0 once the block is done
-  int64_t dlen = 0;     // payload body bytes
-  int64_t body_at = 0;  // the body's offset in flat
-  int64_t base = 0;     // body offset of the tile
-  int64_t k = 1;        // the tile's first step
-  int st = kOk;
-  uint32_t prev = 0;  // the byte before the step, bit 7 dropped (its context is bits 3-6)
-  if (lane < kDecBlocks && b < B) {
-    n = min(max(static_cast<int64_t>(raw_lens[b]), int64_t{0}), S);
-    if (n > 0) {
-      // the block's payload, clamped into flat
-      const int64_t off = min(max(offsets[b], int64_t{0}), flat_len);
-      const int64_t plen = min(max(static_cast<int64_t>(plens[b]), int64_t{0}), flat_len - off);
-      if (plen < 2 || __ldg(flat + off) != kType) {
+  if (tid == 0) {
+    // a CTA's two warps take neighbouring warp slots and slot w issues
+    // from scheduler w % 4: warp (slot >> 2) & 1 spreads the chains over
+    // the four (%warpid: the slot now)
+    uint32_t slot;
+    asm volatile("mov.u32 %0, %%warpid;" : "=r"(slot));
+    chain_warp = (slot >> 2) & 1;
+    tile_busy[0] = tile_busy[1] = 0;
+  }
+  if (tid < kDecBlocks) {
+    const int b = blockIdx.x * kDecBlocks + tid;
+    int64_t n = 0, dlen = 0, at = 0;
+    uint32_t prev = 0;
+    int st = kOk;
+    if (b < B) {
+      n = min(max(static_cast<int64_t>(raw_lens[b]), int64_t{0}), S);
+      if (n > 0) {
+        // the block's payload, clamped into flat
+        const int64_t off = min(max(offsets[b], int64_t{0}), flat_len);
+        const int64_t plen = min(max(static_cast<int64_t>(plens[b]), int64_t{0}), flat_len - off);
+        if (plen < 2 || __ldg(flat + off) != kType) {
+          st = kFormat;
+          n = 0;
+        } else {
+          const uint32_t first = __ldg(flat + off + 1);
+          out[static_cast<int64_t>(b) * S] = static_cast<uint8_t>(first);
+          prev = first & 0x7f;
+          at = off + 2;
+          dlen = plen - 2;
+        }
+      }
+    }
+    setup_n[tid] = n;
+    setup_dlen[tid] = dlen;
+    setup_at[tid] = at;
+    setup_prev[tid] = prev;
+    setup_st[tid] = st;
+  }
+  __syncthreads();
+  const bool parser = (tid >> 5) != chain_warp;
+  const int g0 = min(lane, kDecBlocks - 1);
+  // parse warp, lane g < kDecBlocks: block g's state
+  int64_t n = lane < kDecBlocks ? setup_n[g0] : 0;  // raw length; 0 once the block is done
+  const int64_t dlen = setup_dlen[g0];              // payload body bytes
+  const int64_t body_at = setup_at[g0];             // the body's offset in flat
+  int st = setup_st[g0];
+  int64_t base = 0;    // body offset of the next tile
+  int64_t k = 1;       // the next tile's first step
+  uint32_t carry = 0;  // the automaton's state at the next tile's first nybble
+  // chain warp, lane g < kDecBlocks: block g's chain
+  uint32_t prev = setup_prev[g0];  // the byte before the step, bit 7 dropped (its context is bits 3-6)
+  uint32_t last = 0;               // row offset (context x 8) of the previous step's context
+  uint32_t nlo = kSeedLo, nhi = kSeedHi;  // the row it wrote (stored at the next step)
+  char* const rows = reinterpret_cast<char*>(table[g0]);
+  for (int t = 0;; ++t) {
+    const int cur = t & 1, done = cur ^ 1;
+    if (parser) {
+      flush(rec[cur], tile_busy[cur], tile_taken[cur], tile_step[cur], out, S, lane);  // tile t - 2
+      __syncwarp();
+      if (k < n && base >= dlen) {  // the body ran out before the raw length
         st = kFormat;
         n = 0;
-      } else {
-        const uint32_t first = __ldg(flat + off + 1);
-        out[static_cast<int64_t>(b) * S] = static_cast<uint8_t>(first);
-        prev = first & 0x7f;
-        body_at = off + 2;
-        dlen = plen - 2;
       }
-    }
-  }
-  uint32_t carry = 0;  // the automaton's state at the tile's first nybble
-  int taken = 0;       // records of the tile
-  uint32_t last = 0;   // row offset (context x 8) of the previous step's context
-  uint32_t nlo = kSeedLo, nhi = kSeedHi;  // the row it wrote (stored at the next step)
-  char* const rows = reinterpret_cast<char*>(table[min(lane, kDecBlocks - 1)]);
-  for (;;) {
-    if (k < n && base >= dlen) {  // the body ran out before the raw length
-      st = kFormat;
-      n = 0;
-    }
-    const uint32_t busy = __ballot_sync(kFull, k < n);  // lanes past kDecBlocks have n = 0
-    if (!busy) break;
-    // parse each busy block's tile into records, 128 body bytes a round,
-    // four a lane
-    for (int g = 0; g < kDecBlocks; ++g) {
-      if (!((busy >> g) & 1)) continue;
-      const int64_t gbase = lane_value(base, g), gdlen = lane_value(dlen, g);
-      const uint8_t* gsrc = flat + lane_value(body_at, g) + gbase;
-      const int len = static_cast<int>(min(static_cast<int64_t>(kDecTile), gdlen - gbase));
-      const int cap = static_cast<int>(min(static_cast<int64_t>(2 * kDecTile), lane_value(n - k, g)));
-      const bool end_tile = gbase + len >= gdlen;
-      const int align = static_cast<int>(reinterpret_cast<uintptr_t>(gsrc) & 15);
-      uint8_t* const tile = body[g] + align;
-      stage<kDecTile + 1, 32>(tile, gsrc, len + !end_tile, lane);
-      __syncwarp();
-      const uint32_t* words = reinterpret_cast<const uint32_t*>(body[g]);
-      const int shift = 8 * (align & 3);
-      uint32_t c = __shfl_sync(kFull, carry, g);
-      int made = 0, r = 0;
-      for (; r < len && made < cap; r += 128) {
-        const int q = r + 4 * lane;  // the lane's first byte
-        const int w = (align + q) >> 2;
-        const uint32_t v = q < len ? __funnelshift_r(words[w], words[w + 1], shift) : 0u;
-        const uint32_t nb = q + 4 < len + !end_tile ? tile[q + 4] : 0u;
-        const int have = min(max(len - q, 0), 4);
-        uint32_t run = kRunIdentity;
+      const uint32_t busy = __ballot_sync(kFull, k < n);  // lanes past kDecBlocks have n = 0
+      int taken = 0;  // lane g: block g's records in tile t
+      // parse each busy block's tile into records, 128 body bytes a
+      // round, four a lane
+      for (int g = 0; g < kDecBlocks; ++g) {
+        if (!((busy >> g) & 1)) continue;
+        const int64_t gbase = lane_value(base, g), gdlen = lane_value(dlen, g);
+        const uint8_t* gsrc = flat + lane_value(body_at, g) + gbase;
+        const int len = static_cast<int>(min(static_cast<int64_t>(kDecTile), gdlen - gbase));
+        const int cap = static_cast<int>(min(static_cast<int64_t>(2 * kDecTile), lane_value(n - k, g)));
+        const bool end_tile = gbase + len >= gdlen;
+        const int align = static_cast<int>(reinterpret_cast<uintptr_t>(gsrc) & 15);
+        uint8_t* const tile = body[g] + align;
+        uint8_t* const recs = rec[cur][g];
+        stage<kDecTile + 1, 32>(tile, gsrc, len + !end_tile, lane);
+        __syncwarp();
+        const uint32_t* words = reinterpret_cast<const uint32_t*>(body[g]);
+        const int shift = 8 * (align & 3);
+        uint32_t c = __shfl_sync(kFull, carry, g);
+        int made = 0, r = 0;
+        for (; r < len && made < cap; r += 128) {
+          const int q = r + 4 * lane;  // the lane's first byte
+          const int w = (align + q) >> 2;
+          const uint32_t v = q < len ? __funnelshift_r(words[w], words[w + 1], shift) : 0u;
+          const uint32_t nb = q + 4 < len + !end_tile ? tile[q + 4] : 0u;
+          const int have = min(max(len - q, 0), 4);
+          uint32_t run = kRunIdentity;
 #pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          if (x < have) run = then(run, byte_run(v >> (8 * x)));
-        }
-        uint32_t incl = run;
+          for (int x = 0; x < 4; ++x) {
+            if (x < have) run = then(run, byte_run(v >> (8 * x)));
+          }
+          uint32_t incl = run;
 #pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const uint32_t e = __shfl_up_sync(kFull, incl, d);  // the runs before, composed
-          if (lane >= d) incl = then(e, incl);
-        }
-        uint32_t excl = __shfl_up_sync(kFull, incl, 1);
-        if (lane == 0) excl = kRunIdentity;
-        uint32_t s = (excl >> c) & 1;
-        int at = made + static_cast<int>(c ? excl >> 20 : (excl >> 8) & 0xfff);
+          for (int d = 1; d < 32; d <<= 1) {
+            const uint32_t e = __shfl_up_sync(kFull, incl, d);  // the runs before, composed
+            if (lane >= d) incl = then(e, incl);
+          }
+          uint32_t excl = __shfl_up_sync(kFull, incl, 1);
+          if (lane == 0) excl = kRunIdentity;
+          uint32_t s = (excl >> c) & 1;
+          int at = made + static_cast<int>(c ? excl >> 20 : (excl >> 8) & 0xfff);
 #pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          const uint32_t byte = v >> (8 * x) & 0xff;
-          const uint32_t hi = byte >> 4, lo = byte & 15;
-          const uint32_t next = (x < 3 ? v >> (8 * x + 12) : nb >> 4) & 15;
-          const bool on = x < have;
-          const bool t0 = on && s == 0;
-          const bool t1 = on && (s == 1 || (hi & 8));
-          if (t0 && at < cap) rec[g][at] = static_cast<uint8_t>(hi & 8 ? 0x80 | (hi & 7) : ((hi & 7) << 4) | lo);
-          at += t0;
-          if (t1 && at < cap) rec[g][at] = static_cast<uint8_t>(lo & 8 ? 0x80 | (lo & 7) : ((lo & 7) << 4) | next);
-          at += t1;
-          if (on) s = (byte_run(byte) >> s) & 1;
+          for (int x = 0; x < 4; ++x) {
+            const uint32_t byte = v >> (8 * x) & 0xff;
+            const uint32_t hi = byte >> 4, lo = byte & 15;
+            const uint32_t next = (x < 3 ? v >> (8 * x + 12) : nb >> 4) & 15;
+            const bool on = x < have;
+            const bool t0 = on && s == 0;
+            const bool t1 = on && (s == 1 || (hi & 8));
+            if (t0 && at < cap) recs[at] = static_cast<uint8_t>(hi & 8 ? 0x80 | (hi & 7) : ((hi & 7) << 4) | lo);
+            at += t0;
+            if (t1 && at < cap) recs[at] = static_cast<uint8_t>(lo & 8 ? 0x80 | (lo & 7) : ((lo & 7) << 4) | next);
+            at += t1;
+            if (on) s = (byte_run(byte) >> s) & 1;
+          }
+          const uint32_t row = __shfl_sync(kFull, incl, 31);
+          made += static_cast<int>(c ? row >> 20 : (row >> 8) & 0xfff);
+          c = (row >> c) & 1;
         }
-        const uint32_t row = __shfl_sync(kFull, incl, 31);
-        made += static_cast<int>(c ? row >> 20 : (row >> 8) & 0xfff);
-        c = (row >> c) & 1;
+        // a literal on the body's last nybble would read past the body
+        if (end_tile && r >= len && c == 1) --made;
+        if (lane == g) {
+          taken = min(made, cap);
+          carry = c;
+          base += len;
+        }
       }
-      // a literal on the body's last nybble would read past the body
-      if (end_tile && r >= len && c == 1) --made;
-      if (lane == g) {
-        taken = min(made, cap);
-        carry = c;
-        base += len;
+      if ((busy >> lane) & 1) {
+        tile_taken[cur][lane] = taken;
+        tile_step[cur][lane] = k;
+        k += taken;
       }
-    }
-    __syncwarp();
-    // chain: lane g walks block g's records
-#if NYBBLE_DECODE_CHAIN
-    if ((busy >> lane) & 1) {
-      uint8_t* const recs = rec[lane];
+      if (lane == 0) tile_busy[cur] = busy;
+    } else if ((tile_busy[done] >> lane) & 1) {
+      // chain: lane g walks block g's records of tile t - 1
+      uint8_t* const recs = rec[done][lane];
+      const int taken = tile_taken[done][lane];
       uint32_t t_next = recs[0];
       for (int j = 0; j < taken; ++j) {
-        const uint32_t t = t_next;
+        const uint32_t rc = t_next;
         t_next = recs[j + 1];
         const uint32_t at = prev & 0x78;  // context x 8
         uint2 r = *reinterpret_cast<const uint2*>(rows + at);
-#if NYBBLE_DECODE_FORWARD
         *reinterpret_cast<uint2*>(rows + last) = make_uint2(nlo, nhi);
         if (at == last) r = make_uint2(nlo, nhi);
-#endif
-        const uint32_t o = (t & 0x80) ? __byte_perm(r.x, r.y, t & 7) : t;
+        const uint32_t o = (rc & 0x80) ? __byte_perm(r.x, r.y, rc & 7) : rc;
         mtf(r.x, r.y, o);
-#if NYBBLE_DECODE_FORWARD
         nlo = r.x;
         nhi = r.y;
         last = at;
-#else
-        *reinterpret_cast<uint2*>(rows + at) = r;
-#endif
         recs[j] = static_cast<uint8_t>(o);
         prev = o;
       }
     }
-#endif
-    __syncwarp();
-    // flush the tile's bytes to the output rows
-    for (int g = 0; g < kDecBlocks; ++g) {
-      if (!((busy >> g) & 1)) continue;
-      uint8_t* gdst = out + static_cast<int64_t>(blockIdx.x * kDecBlocks + g) * S + lane_value(k, g);
-      const int gtaken = __shfl_sync(kFull, taken, g);
-      for (int q = lane; q < gtaken; q += 32) gdst[q] = rec[g][q];
+    __syncthreads();
+    if (!tile_busy[cur]) {  // tile t is empty: every block is done
+      if (parser) flush(rec[done], tile_busy[done], tile_taken[done], tile_step[done], out, S, lane);
+      break;
     }
-    if ((busy >> lane) & 1) k += taken;
-    __syncwarp();
   }
-  if (lane < kDecBlocks && b < B) status[b] = st;
+  const int b = blockIdx.x * kDecBlocks + lane;
+  if (parser && lane < kDecBlocks && b < B) status[b] = st;
 }
+
 
 }  // namespace
 
@@ -520,7 +545,7 @@ extern "C" int dct_nybble_decode(const void* flat, long long flat_len, const voi
                                  const void* plens, const void* raw_lens, void* out, long long S,
                                  void* status, int B, void* stream) {
   if (B > 0) {
-    nybble_decode_kernel<<<(B + kDecBlocks - 1) / kDecBlocks, 32, 0,
+    nybble_decode_kernel<<<(B + kDecBlocks - 1) / kDecBlocks, 64, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(flat), static_cast<int64_t>(flat_len),
         static_cast<const int64_t*>(offsets), static_cast<const int32_t*>(plens),
@@ -541,8 +566,9 @@ extern "C" int dct_nybble_occupancy(int decode, void* ctas, void* blocks_per_cta
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   *static_cast<int*>(blocks_per_cta) = decode ? kDecBlocks : 1;
-  *static_cast<int*>(threads) = 32;
+  const int block_threads = decode ? 64 : 32;
+  *static_cast<int*>(threads) = block_threads;
   *static_cast<int*>(smem_bytes) = static_cast<int>(attr.sharedSizeBytes);
   return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(static_cast<int*>(ctas), fn, 32, 0));
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(static_cast<int*>(ctas), fn, block_threads, 0));
 }

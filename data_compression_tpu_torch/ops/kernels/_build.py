@@ -142,33 +142,6 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
-def variant_library(source: str, defines: dict) -> ctypes.CDLL:
-    """``csrc/<source>`` alone, built with ``-D`` name=value for each of
-    ``defines`` into a library of its own (its file name hashes the
-    source and the defines), loaded with the argtypes of the library's
-    entry points that it exports.  For measuring a source's build-time
-    knobs; the kernels' library is never built so."""
-    flags = [f"-D{k}={v}" for k, v in sorted(defines.items())]
-    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *flags, source]).encode())
-    h.update((CSRC_DIR / source).read_bytes())
-    target = BUILD_DIR / f"libdct_variant-{h.hexdigest()[:16]}.so"
-    if not target.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-shared", "-o", str(tmp), str(CSRC_DIR / source)]
-        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                     text=True))])
-        os.replace(tmp, target)
-    loaded = ctypes.CDLL(str(target))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(loaded, name, None)
-        if fn is not None:
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    loaded.path = target
-    return loaded
-
-
 def ptxas_usage(source: str) -> dict:
     """Per kernel of ``csrc/<source>``, what ``nvcc -Xptxas -v`` reports
     for sm_90a at the library's optimisation level (a cubin built apart

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from data_compression_tpu_torch.config import DEFAULT_BLOCK_SIZE
@@ -589,12 +590,24 @@ def small_nybble_decode(flat, offsets, plens, raw_lens, S):
     return _decode(small_nybble_decode, "small_nybble", flat, offsets, plens, raw_lens, S)
 
 
+def longest_context_chain(blocks: np.ndarray, lengths: np.ndarray) -> int:
+    """The most steps of one context in any block: the nybble encoder's
+    serial chain (step i's context is byte i - 1's bits 3-6), counted on
+    the host from [B, S] uint8 blocks and their [B] lengths."""
+    longest = 0
+    for row, n in zip(blocks, lengths):
+        if n > 1:
+            ctx = (row[: n - 1] >> 3) & 15
+            longest = max(longest, int(np.bincount(ctx, minlength=16).max()))
+    return longest
+
+
 def layout_text(threads_per_cta: int, blocks_per_cta: int, smem_per_cta: int) -> str:
     """A lane launch's block-to-thread mapping in words, from the numbers
     ``lane_occupancy`` reads off the kernel."""
     per_block = threads_per_cta // blocks_per_cta
-    if threads_per_cta == 32 and 1 < per_block < 32:
-        who = f"a warp for {blocks_per_cta} blocks (one lane a chain)"
+    if threads_per_cta == 64 and blocks_per_cta > 1:
+        who = f"a parse warp and a chain warp for {blocks_per_cta} blocks (one lane a chain)"
     else:
         who = ("a warp a block" if per_block == 32 else "a thread a block" if per_block == 1
                else f"{per_block // 32} warps a block" if per_block % 32 == 0

@@ -246,6 +246,48 @@ def test_decode_model_equals_the_native_decoder(tile, lanes):
     assert formats > 10
 
 
+def model_decode_pipelined(payload: bytes, n: int, tile: int = TILE):
+    """The decode kernel's two warps: the parse makes every tile's records,
+    their count and FORMAT from the payload alone (the chain never feeds
+    it back), then the chain walks the records in order; -> bytes or
+    None on FORMAT."""
+    if n == 0:
+        return b""
+    if len(payload) < 2 or payload[0] != TYPE:
+        return None
+    body = payload[2:]
+    dlen = len(body)
+    tiles, base, k, carry = [], 0, 1, 0
+    while k < n:
+        if base >= dlen:
+            return None
+        ln = min(tile, dlen - base)
+        nxt = body[base + ln] if base + ln < dlen else 0
+        recs, carry = _parse(body[base: base + ln], nxt, carry, base + ln >= dlen)
+        tiles.append(recs[: n - k])
+        base, k = base + ln, k + len(tiles[-1])
+    out, prev = [payload[1]], payload[1] & 0x7F
+    table = [list(SEED_ROW) for _ in range(16)]
+    for recs in tiles:  # the chain, a tile behind the parse
+        for t in recs:
+            row = table[(prev >> 3) & 15]
+            o = row[t & 7] if t & 0x80 else t
+            _mtf(row, o)
+            out.append(o)
+            prev = o
+    return bytes(out)
+
+
+@pytest.mark.parametrize("tile", [32, 2048])
+def test_decode_parse_runs_ahead_of_the_chain(tile):
+    """The parse alone fixes each tile's records and the block's FORMAT,
+    so it can run a tile ahead of the chain: the two stages in series
+    decode what the native decoder decodes and refuse what it refuses."""
+    for payload, n in _decode_inputs():
+        assert model_decode_pipelined(payload, n, tile) == _native_decode(payload, n), (
+            payload[:8], n)
+
+
 def test_crafted_token_streams_end_where_they_say():
     """``nybble_token_payload``: variants 0 and 2 decode, 1 and 3 are
     FORMAT; variant 3's last token is a literal whose second nybble lies
@@ -289,12 +331,10 @@ def test_plain_lanes_on_the_decomposition_inputs():
 
 
 def test_longest_context_chain_counts_the_encoders_serial_steps():
-    """``tools.nybble_variants.longest_context_chain``: the most steps of
+    """``serial_lanes.longest_context_chain``: the most steps of
     one context (step i's context: byte i - 1's bits 3-6) in any block,
     within each block's length; the deep-code block's chain is nearly the
     whole block."""
-    from data_compression_tpu_torch.tools.nybble_variants import longest_context_chain
-
     rng = np.random.default_rng(78)
     blocks = rng.integers(0, 128, (4, 300), dtype=np.uint8)
     blocks[1, :] = 8  # every step in context 1
@@ -305,18 +345,9 @@ def test_longest_context_chain_counts_the_encoders_serial_steps():
         for i in range(1, n):
             counts[(row[i - 1] >> 3) & 15] += 1
         want = max(want, max(counts))
-    assert longest_context_chain(blocks, lengths) == want == 199
+    assert lanes.longest_context_chain(blocks, lengths) == want == 199
     deep = np.frombuffer(deep_code_block(65536, 7), np.uint8)[None, :]
-    assert longest_context_chain(deep, np.array([65536])) > 0.97 * 65535
-
-
-def test_variants_tool_needs_a_card(monkeypatch):
-    """The build-variant timing tool never falls back to the CPU."""
-    from data_compression_tpu_torch.tools import nybble_variants
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError):
-        nybble_variants.main(["--mib", "1"])
+    assert lanes.longest_context_chain(deep, np.array([65536])) > 0.97 * 65535
 
 
 def _byte_perm(x, y, s):
@@ -365,8 +396,10 @@ def test_row_arithmetic_matches_the_list_model():
 
 
 def test_layout_words_for_a_warp_of_blocks():
-    """A decode warp that holds more than one block (one lane a chain, the
-    whole warp parsing each block's tile in turn) is named so, not as a
-    fraction of a warp a block."""
-    assert lanes.layout_text(32, 2, 12672) == (
-        "a warp for 2 blocks (one lane a chain), 2 block(s) a CTA, 12,672 B of shared memory a CTA")
+    """A decode CTA of two warps for two blocks (one warp parsing each
+    block's tile in turn, one lane of the other a block's chain) is named
+    so, not as a warp a block; two warps for one block stay so named."""
+    assert lanes.layout_text(64, 2, 20976) == (
+        "a parse warp and a chain warp for 2 blocks (one lane a chain), 2 block(s) a CTA, "
+        "20,976 B of shared memory a CTA")
+    assert lanes.layout_text(64, 1, 27696).startswith("2 warps a block, 1 block(s) a CTA")
