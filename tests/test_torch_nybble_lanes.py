@@ -7,8 +7,8 @@ rows of 32 steps: the pending-nybble state from the last miss before a
 step, the bytes a step emits and their offsets by prefix counts, the
 trailing flush.  Decode: the token starts of a tile's body by composing
 the two-state automaton's per-byte functions, one record a step, the
-first step whose token would read past the body (FORMAT), then the chain
-over the records.  The model runs at a small tile so that rows, tiles and
+first step whose token would read past the body (FORMAT), and the chain
+over the records a tile behind the parse.  The model runs at a small tile so that rows, tiles and
 their carries all occur on a few KiB.
 
 Inputs are made with numpy from a seed.  Tolerance: exact.
@@ -134,8 +134,10 @@ def _parse(chunk: bytes, nxt: int, carry: int, end: bool, lanes=32, per=4):
 
 
 def model_decode(payload: bytes, n: int, tile: int = TILE, lanes: int = 32):
-    """The decode kernel's decomposition on one block; -> (bytes or None
-    on FORMAT, the step at which FORMAT is found)."""
+    """The decode kernel's decomposition on one block, in its two warps'
+    order: the parse makes tile t's records, their count and FORMAT from
+    the payload alone, while the chain walks tile t - 1's; -> (bytes or
+    None on FORMAT, the step at which FORMAT is found)."""
     if n == 0:
         return b"", None
     if len(payload) < 2 or payload[0] != TYPE:
@@ -145,7 +147,17 @@ def model_decode(payload: bytes, n: int, tile: int = TILE, lanes: int = 32):
     dlen = len(body)
     table = [list(SEED_ROW) for _ in range(16)]
     prev = payload[1] & 0x7F
-    base, k, carry = 0, 1, 0
+
+    def chain(recs):
+        nonlocal prev
+        for t in recs:
+            row = table[(prev >> 3) & 15]
+            o = row[t & 7] if t & 0x80 else t
+            _mtf(row, o)
+            out.append(o)
+            prev = o
+
+    base, k, carry, behind = 0, 1, 0, []
     while k < n:
         if base >= dlen:
             return None, k
@@ -153,13 +165,10 @@ def model_decode(payload: bytes, n: int, tile: int = TILE, lanes: int = 32):
         nxt = body[base + ln] if base + ln < dlen else 0
         recs, carry = _parse(body[base: base + ln], nxt, carry, base + ln >= dlen, lanes)
         recs = recs[: n - k]
-        for t in recs:  # the chain
-            row = table[(prev >> 3) & 15]
-            o = row[t & 7] if t & 0x80 else t
-            _mtf(row, o)
-            out.append(o)
-            prev = o
+        chain(behind)  # the chain, a tile behind the parse
+        behind = recs
         base, k = base + ln, k + len(recs)
+    chain(behind)
     return bytes(out), None
 
 
@@ -226,10 +235,11 @@ def _decode_inputs():
     return cases + list(zip(payloads, raws))
 
 
-@pytest.mark.parametrize("tile,lanes", [(32, 2), (TILE, 4), (4096, 32)])
+@pytest.mark.parametrize("tile,lanes", [(32, 2), (TILE, 4), (4096, 32), (2048, 32)])
 def test_decode_model_equals_the_native_decoder(tile, lanes):
-    """The token-start scan and the chain over records decode what the
-    native decoder decodes and refuse what it refuses; the step at which
+    """The token-start scan and the chain over records, a tile behind it,
+    at a tile of one row, of a few and of the kernel's 2048, decode what
+    the native decoder decodes and refuse what it refuses; the step at which
     the model finds FORMAT is the one at which the C returns it: the
     native decoder takes the same payload at that raw length and refuses
     it one step later."""
@@ -244,48 +254,6 @@ def test_decode_model_equals_the_native_decoder(tile, lanes):
                 assert _native_decode(payload, step) is not None, (payload[:8], n, step)
                 assert _native_decode(payload, step + 1) is None
     assert formats > 10
-
-
-def model_decode_pipelined(payload: bytes, n: int, tile: int = TILE):
-    """The decode kernel's two warps: the parse makes every tile's records,
-    their count and FORMAT from the payload alone (the chain never feeds
-    it back), then the chain walks the records in order; -> bytes or
-    None on FORMAT."""
-    if n == 0:
-        return b""
-    if len(payload) < 2 or payload[0] != TYPE:
-        return None
-    body = payload[2:]
-    dlen = len(body)
-    tiles, base, k, carry = [], 0, 1, 0
-    while k < n:
-        if base >= dlen:
-            return None
-        ln = min(tile, dlen - base)
-        nxt = body[base + ln] if base + ln < dlen else 0
-        recs, carry = _parse(body[base: base + ln], nxt, carry, base + ln >= dlen)
-        tiles.append(recs[: n - k])
-        base, k = base + ln, k + len(tiles[-1])
-    out, prev = [payload[1]], payload[1] & 0x7F
-    table = [list(SEED_ROW) for _ in range(16)]
-    for recs in tiles:  # the chain, a tile behind the parse
-        for t in recs:
-            row = table[(prev >> 3) & 15]
-            o = row[t & 7] if t & 0x80 else t
-            _mtf(row, o)
-            out.append(o)
-            prev = o
-    return bytes(out)
-
-
-@pytest.mark.parametrize("tile", [32, 2048])
-def test_decode_parse_runs_ahead_of_the_chain(tile):
-    """The parse alone fixes each tile's records and the block's FORMAT,
-    so it can run a tile ahead of the chain: the two stages in series
-    decode what the native decoder decodes and refuse what it refuses."""
-    for payload, n in _decode_inputs():
-        assert model_decode_pipelined(payload, n, tile) == _native_decode(payload, n), (
-            payload[:8], n)
 
 
 def test_crafted_token_streams_end_where_they_say():
