@@ -1170,11 +1170,13 @@ def stream_phase(data: bytes, card: str) -> dict:
 
 
 def histogram_phase(data: bytes, dev, card: str) -> dict:
-    """The histogram kernel against its plain version (``index_add_``) on
-    the 64 MiB input and on 64 MiB of one byte value (0, zero padding),
-    and on the first streamed batch's 256 blocks of each, whose rows the
-    kernel cuts into slices (phase 9's shape), byte for byte; -> its
-    kernels-line entry, with the one-value and the batch's times."""
+    """The histogram kernel against its plain version (``index_add_``) and
+    numpy's counts on the 64 MiB input, on 64 MiB of one byte value (0,
+    zero padding) and on 64 MiB of one random 16-byte record repeated
+    (period 16: every thread loads the same vector), and on the first
+    streamed batch's 256 blocks of each, whose rows the kernel cuts into
+    slices (phase 9's shape), byte for byte; -> its kernels-line entry,
+    with the one-value, period-16 and batch times."""
     import numpy as np
     import torch
 
@@ -1186,31 +1188,42 @@ def histogram_phase(data: bytes, dev, card: str) -> dict:
     dev_blocks = torch.from_numpy(blocks).to(dev)
     dev_lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
     one = torch.zeros_like(dev_blocks)
+    record = np.random.default_rng(SEED).integers(0, 256, 16, dtype=np.uint8)
+    period_host = np.tile(record, blocks.size // 16).reshape(blocks.shape)
+    period = torch.from_numpy(period_host).to(dev)
     everywhere = torch.ones((dev_blocks.shape[0], 256), dtype=torch.bool, device=dev)
-    got = khist.block_histograms(dev_blocks, dev_lens)
-    err = max_abs_err(got, khist.block_histograms_ref(dev_blocks, dev_lens), everywhere)
-    want = np.stack([np.bincount(blocks[i, :lengths[i]], minlength=256)
-                     for i in range(len(lengths))])
-    if not np.array_equal(got.cpu().numpy(), want):
-        raise AssertionError("histogram kernel differs from numpy's counts")
-    one_err = max_abs_err(khist.block_histograms(one, dev_lens),
-                          khist.block_histograms_ref(one, dev_lens), everywhere)
+
+    def counts(host):
+        return np.stack([np.bincount(host[i, :lengths[i]], minlength=256)
+                         for i in range(len(lengths))])
+
+    want = counts(blocks)
+    want_one = np.zeros_like(want)
+    want_one[:, 0] = lengths
+    want_period = counts(period_host)
     batch = api.DEFAULT_BATCH_BLOCKS
+    errs = []
+    for name, rows, wanted in (("text", dev_blocks, want), ("one value", one, want_one),
+                               ("period 16", period, want_period)):
+        for what, rws, lens, w, mask in (("64 MiB", rows, dev_lens, wanted, everywhere),
+                                         (f"{batch} blocks", rows[:batch], dev_lens[:batch],
+                                          wanted[:batch], everywhere[:batch])):
+            got = khist.block_histograms(rws, lens)
+            errs.append(max_abs_err(got, khist.block_histograms_ref(rws, lens), mask))
+            if not np.array_equal(got.cpu().numpy(), w):
+                raise AssertionError(f"histogram kernel ({name}, {what}) differs from numpy's "
+                                     "counts")
     slices = khist.slices_for(batch, blocks.shape[1],
                               torch.cuda.get_device_properties(dev).multi_processor_count)
     if slices < 2:
         raise AssertionError(f"a batch of {batch} blocks is not cut into slices ({slices})")
     part, part_lens, part_one = dev_blocks[:batch], dev_lens[:batch], one[:batch]
+    part_period = period[:batch]
+    got = khist.block_histograms(dev_blocks, dev_lens)
     got_part = khist.block_histograms(part, part_lens)
-    batch_err = max(max_abs_err(got_part, khist.block_histograms_ref(part, part_lens),
-                                everywhere[:batch]),
-                    max_abs_err(khist.block_histograms(part_one, part_lens),
-                                khist.block_histograms_ref(part_one, part_lens), everywhere[:batch]))
-    if not np.array_equal(got_part.cpu().numpy(), want[:batch]):
-        raise AssertionError("histogram kernel (sliced rows) differs from numpy's counts")
     plain_ms = chain_ms(lambda: khist.block_histograms_ref(dev_blocks, dev_lens))
     entry = dict(
-        max_abs_err=max(err, one_err, batch_err),
+        max_abs_err=max(errs),
         ms=chain_ms(lambda: khist.block_histograms(dev_blocks, dev_lens)),
         device_ms=timing.device_ms(lambda: khist.block_histograms(dev_blocks, dev_lens)),
         plain_ms=plain_ms,
@@ -1220,19 +1233,28 @@ def histogram_phase(data: bytes, dev, card: str) -> dict:
         one_value_plain_ms=chain_ms(lambda: khist.block_histograms_ref(one, dev_lens)),
         batch_slices=slices,
         batch_ms=chain_ms(lambda: khist.block_histograms(part, part_lens)),
+        batch_device_ms=timing.device_ms(lambda: khist.block_histograms(part, part_lens)),
         batch_one_value_ms=chain_ms(lambda: khist.block_histograms(part_one, part_lens)),
         batch_plain_ms=chain_ms(lambda: khist.block_histograms_ref(part, part_lens)),
         batch_bound_ms=bound_ms(int(lengths[:batch].sum()) + nbytes_of(part_lens, got_part)),
+        period16_ms=chain_ms(lambda: khist.block_histograms(period, dev_lens)),
+        period16_device_ms=timing.device_ms(lambda: khist.block_histograms(period, dev_lens)),
+        period16_batch_ms=chain_ms(lambda: khist.block_histograms(part_period, part_lens)),
+        period16_batch_device_ms=timing.device_ms(
+            lambda: khist.block_histograms(part_period, part_lens)),
     )
-    log(f"kernel histogram: 64 MiB text and 64 MiB of one byte value equal the plain version, "
-        f"and so do their first {batch} blocks ({slices} slices a row) "
-        f"(max_abs_err {entry['max_abs_err']}); kernel {entry['ms']:.4f} ms (device "
-        f"{entry['device_ms']:.4f} ms), one value "
-        f"{entry['one_value_ms']:.4f} ms; plain (index_add_) {entry['plain_ms']:.4f} ms, one "
-        f"value {entry['one_value_plain_ms']:.4f} ms; bound {entry['bound_ms']:.4f} ms; "
-        f"{batch} blocks: kernel {entry['batch_ms']:.4f} ms, one value "
-        f"{entry['batch_one_value_ms']:.4f} ms, plain {entry['batch_plain_ms']:.4f} ms, bound "
-        f"{entry['batch_bound_ms']:.4f} ms; card {card}")
+    log(f"kernel histogram: 64 MiB of text, of one byte value and of a 16-byte record equal "
+        f"the plain version and numpy's counts, and so do their first {batch} blocks ({slices} "
+        f"slices a row) (max_abs_err {entry['max_abs_err']}); kernel {entry['ms']:.4f} ms "
+        f"(device {entry['device_ms']:.4f} ms), one value {entry['one_value_ms']:.4f} ms, "
+        f"period 16 {entry['period16_ms']:.4f} ms (device {entry['period16_device_ms']:.4f} "
+        f"ms); plain (index_add_) {entry['plain_ms']:.4f} ms, one value "
+        f"{entry['one_value_plain_ms']:.4f} ms; bound {entry['bound_ms']:.4f} ms; {batch} "
+        f"blocks: kernel {entry['batch_ms']:.4f} ms (device {entry['batch_device_ms']:.4f} ms), "
+        f"one value {entry['batch_one_value_ms']:.4f} ms, period 16 "
+        f"{entry['period16_batch_ms']:.4f} ms (device {entry['period16_batch_device_ms']:.4f} "
+        f"ms), plain {entry['batch_plain_ms']:.4f} ms, bound {entry['batch_bound_ms']:.4f} ms; "
+        f"card {card}")
     return entry
 
 
@@ -1316,6 +1338,7 @@ def device_phase(data: bytes, blobs: dict, dev, card: str, count_launches) -> tu
             plain_ms=chain_ms(plain_tables), plain_device_ms=timing.device_ms(plain_tables),
             bound_ms=bound_ms(nbytes_of(table_rows, *tables_k)), bound_by="bytes",
             library_ms=None,
+            launch_floor_ms=timing.device_ms(lambda: ktb.decode_tables_floor(table_rows)),
         )
         lim, bmf, syms = tables_k
         rows, digits, bb = kencode.encode_blocks(dev_blocks, dev_lens, dense_k, C, n)
@@ -1356,7 +1379,8 @@ def device_phase(data: bytes, blobs: dict, dev, card: str, count_launches) -> tu
         log(f"kernel decode_tables n={n}: == plain == host decode_tensors (max_abs_err "
             f"{d['max_abs_err']}); kernel {d['ms']:.4f} ms (device {d['device_ms']:.4f} ms), "
             f"plain (torch ops) {d['plain_ms']:.4f} ms (device {d['plain_device_ms']:.4f} ms), "
-            f"bound {d['bound_ms']:.4f} ms")
+            f"bound {d['bound_ms']:.4f} ms, an empty kernel on its grid (device) "
+            f"{d['launch_floor_ms']:.4f} ms")
         e = entries[n]
         log(f"kernel table_build n={n}: lengths == native == plain, encode table == native == "
             f"plain (max_abs_err {e['max_abs_err']}); kernel {e['ms']:.4f} ms (device "

@@ -1,4 +1,4 @@
-// Canonical Huffman decode tables from wire length rows, one row per CTA.
+// Canonical Huffman decode tables from wire length rows, one warp a row.
 //
 // Replaces data_compression_tpu/ops/table_build.py `decode_tables_device`
 // (no Pallas kernel: jnp ops, a count per length, a max scan and an
@@ -24,109 +24,154 @@
 //
 // What bounds it on the card: neither bytes (256 B in and 1 KiB + 8 (L + 1)
 // B out per row: 1.3 MiB at B = 1024, under a microsecond at 3.35 TB/s)
-// nor operations, but the launch and a few dependent shared-memory steps.
-// Design: 256 threads, one per symbol, no sort and no serial loop over
-// symbols.  __match_any_sync on the lengths gives each symbol's rank among
-// the same-length symbols of its warp, and each warp's count of every
-// length; one pass over the 8 warps per length turns those into the
-// count of that length in the warps before each warp, and the row's
-// count; a block scan over the 256 lengths gives each length's base.  A
-// used symbol's rank is base[len] + its length's count in the earlier
-// warps + its rank in its warp.  Thread l in 1..L then runs the
-// first-code recurrence up to l in 64 bits (at most 15 steps).
+// nor operations, but the launch and a chain of dependent warp steps.
+// Design: one warp a row, 8 rows a CTA, no CTA barrier and no shared
+// memory to clear but the warp's 1 KiB of length counts.  Lane i holds
+// the lengths of symbols i + 32 j, j = 0..7, so slot j holds symbols
+// 32 j .. 32 j + 31 in order: per slot, __match_any_sync on the lengths
+// gives each symbol's rank among the slot's symbols of its length, and
+// the count of its length in the earlier slots is read from the warp's
+// counts, which the first lane of each length then advances (a stable
+// counting sort over all 256 lengths, rows never written included).  A
+// warp scan over the counts gives each length's base, and a symbol's rank
+// is base[len] + its rank in its length.  The first codes and the powers
+// of n come from one warp scan of the affine steps x -> n x + count[l]
+// in 64 bits.
+//
+// `dct_decode_tables_floor` launches an empty kernel on the same grid: the
+// launch floor its time is read against.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kS = 256;  // alphabet, and threads per CTA
-constexpr int kWarps = kS / 32;
+constexpr int kS = 256;    // alphabet
+constexpr int kRows = 8;   // rows (warps) a CTA
+constexpr int kSlots = kS / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ int32_t low32(int64_t x) {
-  return static_cast<int32_t>(static_cast<uint32_t>(static_cast<uint64_t>(x)));
+__device__ __forceinline__ int32_t low32(uint64_t x) {
+  return static_cast<int32_t>(static_cast<uint32_t>(x));
 }
 
-__global__ void __launch_bounds__(kS)
+__global__ void __launch_bounds__(kRows * 32)
 decode_tables_kernel(const uint8_t* __restrict__ rows, int32_t* __restrict__ limit,
-                     int32_t* __restrict__ bmf, int32_t* __restrict__ symbols, int n, int L) {
-  // [w][v]: warp w's count of length v, then the count of v in warps < w
-  __shared__ int s_warp_count[kWarps][kS];
-  __shared__ int s_count[kS];  // the row's count of length v
-  __shared__ int s_base[kS];   // used symbols of lengths 1..v-1
-  __shared__ int s_sym[kS];
-  __shared__ int s_scan[kWarps];
-  __shared__ int s_max_len;
-
-  const int64_t b = blockIdx.x;
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int len = rows[b * kS + t];
+                     int32_t* __restrict__ bmf, int32_t* __restrict__ symbols, int B, int n,
+                     int L) {
+  __shared__ __align__(16) int s_count[kRows][kS];  // a warp's count, then base, of each length
+  __shared__ int s_sym[kRows][kS];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kRows + warp;
+  if (b >= B) return;  // whole warps only: no CTA barrier below
+  int* count = s_count[warp];
+  int* sym = s_sym[warp];
+  const uint8_t* row = rows + b * kS;
+  int len[kSlots];
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) s_warp_count[w][t] = 0;
-  s_sym[t] = 0;
-  if (t == 0) s_max_len = 0;
-  __syncthreads();
+  for (int j = 0; j < kSlots; ++j) len[j] = row[32 * j + lane];
+  reinterpret_cast<int4*>(count)[2 * lane] = make_int4(0, 0, 0, 0);
+  reinterpret_cast<int4*>(count)[2 * lane + 1] = make_int4(0, 0, 0, 0);
+  __syncwarp();
 
-  const unsigned same = __match_any_sync(kFull, len);
-  const int rank_in_warp = __popc(same & ((1u << lane) - 1u));
-  if (rank_in_warp == 0) s_warp_count[warp][len] = __popc(same);
-  __syncthreads();
-
-  // thread t owns length t: counts in the earlier warps, and the row's count
-  int count = 0;
+  // stable ranks within each length, slot by slot
+  const unsigned below = (1u << lane) - 1u;
+  int rank[kSlots];
+  int longest = 0;
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const int c = s_warp_count[w][t];
-    s_warp_count[w][t] = count;
-    count += c;
+  for (int j = 0; j < kSlots; ++j) {
+    const unsigned same = __match_any_sync(kFull, len[j]);
+    const int earlier = count[len[j]];
+    rank[j] = earlier + __popc(same & below);
+    __syncwarp();
+    if ((same & below) == 0) count[len[j]] = earlier + __popc(same);
+    __syncwarp();
+    longest = max(longest, len[j]);
   }
-  s_count[t] = count;
-  if (t > 0 && count > 0) atomicMax(&s_max_len, t);
-  // exclusive scan of the counts of lengths 1..255 (length 0 is unused)
-  const int mine = t > 0 ? count : 0;
-  int incl = mine;
+  const int max_len = static_cast<int>(__reduce_max_sync(kFull, static_cast<unsigned>(longest)));
+
+  // base of every length: lane i owns lengths 8 i .. 8 i + 7 (length 0 is unused)
+  const int4 c0 = reinterpret_cast<const int4*>(count)[2 * lane];
+  const int4 c1 = reinterpret_cast<const int4*>(count)[2 * lane + 1];
+  const int own = lane >= 1 && lane <= L ? count[lane] : 0;  // count[l] for the first codes
+  int c[8] = {lane ? c0.x : 0, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+  int total = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int x = c[k];
+    c[k] = total;
+    total += x;
+  }
+  int incl = total;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const int y = __shfl_up_sync(kFull, incl, d);
     if (lane >= d) incl += y;
   }
-  if (lane == 31) s_scan[warp] = incl;
-  __syncthreads();
-  int before = 0;
-  for (int w = 0; w < warp; ++w) before += s_scan[w];
-  s_base[t] = before + incl - mine;
-  __syncthreads();
+  const int before = incl - total;
+  const int used = __shfl_sync(kFull, incl, 31);
+  __syncwarp();
+  reinterpret_cast<int4*>(count)[2 * lane] =
+      make_int4(before + c[0], before + c[1], before + c[2], before + c[3]);
+  reinterpret_cast<int4*>(count)[2 * lane + 1] =
+      make_int4(before + c[4], before + c[5], before + c[6], before + c[7]);
+  __syncwarp();
 
-  if (len > 0) s_sym[s_base[len] + s_warp_count[warp][len] + rank_in_warp] = t;
-  if (t <= L) {
-    const int max_len = s_max_len;
-    int64_t first = 0, base = 0, scale = 1;
-    for (int j = 1; j < t; ++j) {
-      first = (first + s_count[j]) * n;
-      base += s_count[j];
-    }
-    for (int j = t; j < L; ++j) scale *= n;
-    const int64_t lim = t >= 1 && max_len >= 1 ? (first + s_count[t]) * scale : 0;
-    const int64_t bm = t >= 1 && t <= max_len ? base - first : 0;
-    limit[b * (L + 1) + t] = low32(lim);
-    bmf[b * (L + 1) + t] = low32(bm);
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j)
+    if (len[j] > 0) sym[count[len[j]] + rank[j]] = 32 * j + lane;
+  const int base = lane <= L ? count[lane] : 0;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int r = 32 * j + lane;
+    symbols[b * kS + r] = r < used ? sym[r] : 0;
   }
-  __syncthreads();
-  symbols[b * kS + t] = s_sym[t];
+
+  // g[l] = first[l] + count[l] = sum_{j <= l} count[j] n^(l - j), and a[l] = n^l,
+  // by an inclusive scan of the steps x -> n x + count[l] (lane 0: identity)
+  uint64_t a = lane >= 1 ? static_cast<uint64_t>(n) : 1u;
+  uint64_t g = static_cast<uint64_t>(own);
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint64_t pa = __shfl_up_sync(kFull, a, d);
+    const uint64_t pg = __shfl_up_sync(kFull, g, d);
+    if (lane >= d) {
+      g = a * pg + g;
+      a *= pa;
+    }
+  }
+  const uint64_t first = static_cast<uint64_t>(n) * __shfl_up_sync(kFull, g, 1);
+  const uint64_t scale = __shfl_sync(kFull, a, lane <= L ? L - lane : 0);  // n^(L - l)
+  if (lane <= L) {
+    const uint64_t lim = lane >= 1 && max_len >= 1 ? g * scale : 0;
+    const uint64_t bm = lane >= 1 && lane <= max_len ? static_cast<uint64_t>(base) - first : 0;
+    limit[b * (L + 1) + lane] = low32(lim);
+    bmf[b * (L + 1) + lane] = low32(bm);
+  }
 }
+
+__global__ void empty_kernel() {}
 
 }  // namespace
 
 extern "C" int dct_decode_tables(const void* rows, void* limit, void* bmf, void* symbols, int B,
                                  int arity, int L, void* stream) {
-  if (L < 1 || L >= kS) return static_cast<int>(cudaErrorInvalidValue);
+  if (L < 1 || L >= 32) return static_cast<int>(cudaErrorInvalidValue);
   if (B > 0) {
-    decode_tables_kernel<<<static_cast<unsigned>(B), kS, 0, static_cast<cudaStream_t>(stream)>>>(
+    decode_tables_kernel<<<static_cast<unsigned>((B + kRows - 1) / kRows), kRows * 32, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(rows), static_cast<int32_t*>(limit),
-        static_cast<int32_t*>(bmf), static_cast<int32_t*>(symbols), arity, L);
+        static_cast<int32_t*>(bmf), static_cast<int32_t*>(symbols), B, arity, L);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dct_decode_tables_floor(int B, void* stream) {
+  if (B > 0) {
+    empty_kernel<<<static_cast<unsigned>((B + kRows - 1) / kRows), kRows * 32, 0,
+                   static_cast<cudaStream_t>(stream)>>>();
   }
   return static_cast<int>(cudaGetLastError());
 }

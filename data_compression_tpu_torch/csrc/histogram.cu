@@ -7,132 +7,209 @@
 // global atomics took 1.7-2.0 ms at 64 MiB.
 //
 // What bounds it on the card: bytes, S per row read once and 2 KiB of
-// counts written (64 MiB in: 0.0207 ms at 3.35 TB/s), if the counting
-// keeps up with the loads.  Design:
-//   * one CTA of 256 threads walks one slice of one row (grid B x slices;
-//     the wrapper picks slices so that a small B still fills the card);
-//   * 16-byte loads from the first 16-byte aligned address of the slice,
-//     single bytes before it and after the last whole vector, so any row
-//     base, row stride and S work;
-//   * bins in shared memory, two copies per warp (lane l counts into copy
-//     l % 2), so only the lanes of one warp that share a copy contend for
-//     a bin: in text, lanes that see the same letter (a space, 'e') do.
-//     The copies start 8 banks apart, so one value in two copies is two
-//     banks.  One copy a warp measured slower on text, and four (34 KiB a
-//     CTA) no longer fit 1024 CTAs on the card at once (PERF.md);
-//   * each thread keeps the value of its last byte and a run count in
-//     registers, and adds to a bin only when the value changes: a row of
-//     one byte value (zero padding, a sparse file), whose increments would
-//     otherwise all hit one shared address, costs one atomic per thread;
-//   * the warps' copies are summed and written as int64; with several
-//     slices per row the output is zeroed on the stream first and each
-//     slice adds its counts with global atomics (256 per CTA).
+// counts written (64 MiB in: 0.0200 ms at 3.35 TB/s), if the counting
+// keeps up with the loads: 13 bytes a cycle on each SM.  A byte costs at
+// least one shared-memory read and write, and an SM moves one warp-wide
+// shared access a cycle, so the count per byte has to stay small and not
+// depend on the data.  Design:
+//   * thread-private 8-bit counters, four to a 32-bit word in shared
+//     memory: thread t's counter of value v is byte (v & 3) of word
+//     (v >> 2) * 64 + t, so the 32 lanes of a warp always hit 32 banks
+//     and no two threads share a counter: a byte is a plain load, add
+//     and store, whatever the data (text, one value, a period of 16);
+//   * its address is one `prmt` per byte: per 4-byte word, one `lop3`
+//     puts (v & 3) | t << 2 in each byte and one shift and `lop3` put
+//     v >> 2 in each byte; the permute takes byte j of both, and the
+//     second one's sign (always 0) for the high half;
+//   * a CTA is two warps (16 KiB of counters, 12 CTAs an SM); each round
+//     a thread loads sixteen 16-byte vectors (a warp reads 512 contiguous
+//     bytes a load), so a counter takes at most 255 of a round's 256
+//     bytes: the round's 256th byte, and the bytes before the first and
+//     after the last whole vector (any row base, stride and S), go to a
+//     shared 32-bit bin by an atomic;
+//   * after a round the counters are flushed: thread t sums the 64
+//     counter words of values 4t..4t+3 (16 conflict-free 16-byte loads,
+//     the bytes added in 16-bit pairs) into four 32-bit sums it keeps in
+//     registers, and zeroes them;
+//   * a row is cut into `parts` (1, 2, 4 or 8) so that a small batch
+//     still fills the card: the parts of a row are one thread-block
+//     cluster, and its first CTA adds the others' sums through
+//     distributed shared memory and writes the row's int64 counts, with
+//     no memset and no global atomic.
 // No host read and no allocation: the launch goes on the caller's stream.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kCopies = 2;  // copies of the bins per warp
-constexpr int kStride = 256 + 8;  // words between copies of the bins: 8 banks of skew
-constexpr uint32_t kNone = 0xffffffffu;  // no byte seen yet
+constexpr int kThreads = 64;                    // thread t owns values 4t..4t+3 at the flush
+constexpr int kVecs = 16;                       // 16-byte vectors a thread counts a round
+constexpr int64_t kRoundVecs = kThreads * kVecs;  // 16 KiB a round
+constexpr int kCounterBytes = 256 * kThreads;   // 16 KiB of 8-bit counters
+constexpr int kMaxParts = 8;                    // portable cluster size
+constexpr int kCtasPerSm = 12;                  // 17 KiB of shared memory a CTA
 
-struct Run {
-  uint32_t value = kNone;
-  uint32_t count = 0;
-};
-
-__device__ __forceinline__ void count_byte(uint32_t* bins, Run& r, uint32_t v) {
-  const bool same = v == r.value;
-  if (!same && r.count) atomicAdd(&bins[r.value], r.count);
-  r.count = same ? r.count + 1 : 1;
-  r.value = v;
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
 }
 
-__device__ __forceinline__ void count_word(uint32_t* bins, Run& r, uint32_t w) {
+__device__ __forceinline__ void bump(uint8_t* counters, uint32_t at) {
+  counters[at] = static_cast<uint8_t>(counters[at] + 1);
+}
+
+// Count the bytes of word w from byte kFrom on; t4 = (tid << 2) in every byte.
+template <int kFrom>
+__device__ __forceinline__ void count_word(uint8_t* counters, uint32_t w, uint32_t t4) {
+  const uint32_t lo = (w & 0x03030303u) | t4;  // (v & 3) | t << 2: address bits 0-7
+  const uint32_t hi = (w >> 2) & 0x3f3f3f3fu;  // v >> 2: address bits 8-13
+  if (kFrom <= 0) bump(counters, prmt(lo, hi, 0xCC40u));
+  if (kFrom <= 1) bump(counters, prmt(lo, hi, 0xDD51u));
+  bump(counters, prmt(lo, hi, 0xEE62u));
+  bump(counters, prmt(lo, hi, 0xFF73u));
+}
+
+// One round: vectors first + k * kThreads + tid, k < kVecs, below nvec.
+template <bool kFull>
+__device__ __forceinline__ void count_round(const uint4* __restrict__ vec, int64_t first,
+                                            int64_t nvec, uint8_t* counters, uint32_t* extra,
+                                            uint32_t t4, int tid) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) count_byte(bins, r, (w >> (8 * j)) & 0xffu);
+  for (int k = 0; k < kVecs; ++k) {
+    const int64_t i = first + k * kThreads + tid;
+    if (kFull || i < nvec) {
+      const uint4 a = __ldg(vec + i);
+      if (kFull && k == kVecs - 1) {  // the round's 256th byte
+        atomicAdd(&extra[a.x & 0xffu], 1u);
+        count_word<1>(counters, a.x, t4);
+      } else {
+        count_word<0>(counters, a.x, t4);
+      }
+      count_word<0>(counters, a.y, t4);
+      count_word<0>(counters, a.z, t4);
+      count_word<0>(counters, a.w, t4);
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Add values 4t..4t+3's counters of every thread into sum[], zero them.
+__device__ __forceinline__ void flush(uint8_t* counters, int tid, uint32_t (&sum)[4]) {
+  uint4* row = reinterpret_cast<uint4*>(counters + tid * 256);
+  uint32_t even = 0, odd = 0;  // 16-bit pairs: values 4t, 4t+2 / 4t+1, 4t+3
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    const int q = (m + tid) & 15;  // 8 lanes of a phase read 8 bank quads
+    const uint4 c = row[q];
+    row[q] = make_uint4(0, 0, 0, 0);
+    even += (c.x & 0x00ff00ffu) + (c.y & 0x00ff00ffu) + (c.z & 0x00ff00ffu) + (c.w & 0x00ff00ffu);
+    odd += ((c.x >> 8) & 0x00ff00ffu) + ((c.y >> 8) & 0x00ff00ffu) + ((c.z >> 8) & 0x00ff00ffu) +
+           ((c.w >> 8) & 0x00ff00ffu);
+  }
+  sum[0] += even & 0xffffu;
+  sum[1] += odd & 0xffffu;
+  sum[2] += even >> 16;
+  sum[3] += odd >> 16;
+}
+
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
 histogram_kernel(const uint8_t* __restrict__ blocks, int64_t row_stride,
                  const int32_t* __restrict__ lengths, unsigned long long* __restrict__ out,
-                 int64_t S, int slices, int64_t span) {
-  constexpr int kBins = kWarps * kCopies;
-  __shared__ uint32_t bins[kBins * kStride];
+                 int64_t S, int parts, int64_t span) {
+  __shared__ __align__(16) uint8_t counters[kCounterBytes];
+  __shared__ __align__(16) uint32_t extra[256];
   const int tid = threadIdx.x;
-  const int row = blockIdx.x / slices;
-  const int slice = blockIdx.x - row * slices;
-  for (int i = tid; i < kBins * kStride; i += kThreads) bins[i] = 0;
+  const int row = blockIdx.x / parts;
+  const int part = blockIdx.x - row * parts;  // the CTA's rank in its cluster
+#pragma unroll
+  for (int i = tid; i < kCounterBytes / 16; i += kThreads)
+    reinterpret_cast<uint4*>(counters)[i] = make_uint4(0, 0, 0, 0);
+  reinterpret_cast<uint4*>(extra)[tid] = make_uint4(0, 0, 0, 0);
   __syncthreads();
 
   const int64_t n = min(max(static_cast<int64_t>(lengths[row]), int64_t{0}), S);
-  const int64_t lo = min(slice * span, n);
+  const int64_t lo = min(part * span, n);
   const int64_t hi = min(lo + span, n);
   const uint8_t* base = blocks + row * row_stride;
-  uint32_t* mine = bins + ((tid >> 5) * kCopies + (tid & (kCopies - 1))) * kStride;
-  Run r;
 
   // head bytes up to the first 16-byte aligned address, whole vectors, tail
   const int64_t head =
       min(static_cast<int64_t>((16 - (reinterpret_cast<uintptr_t>(base + lo) & 15)) & 15), hi - lo);
   const int64_t body = lo + head;
   const int64_t nvec = (hi - body) >> 4;
-  if (tid < head) count_byte(mine, r, base[lo + tid]);
-  const uint4* vec = reinterpret_cast<const uint4*>(base + body);
-  int64_t i = tid;
-  for (; i + kThreads < nvec; i += 2 * kThreads) {  // two loads in flight
-    const uint4 a = __ldg(vec + i);
-    const uint4 b = __ldg(vec + i + kThreads);
-    count_word(mine, r, a.x);
-    count_word(mine, r, a.y);
-    count_word(mine, r, a.z);
-    count_word(mine, r, a.w);
-    count_word(mine, r, b.x);
-    count_word(mine, r, b.y);
-    count_word(mine, r, b.z);
-    count_word(mine, r, b.w);
-  }
-  if (i < nvec) {
-    const uint4 a = __ldg(vec + i);
-    count_word(mine, r, a.x);
-    count_word(mine, r, a.y);
-    count_word(mine, r, a.z);
-    count_word(mine, r, a.w);
-  }
-  for (int64_t t = body + (nvec << 4) + tid; t < hi; t += kThreads) count_byte(mine, r, base[t]);
-  if (r.count) atomicAdd(&mine[r.value], r.count);
-  __syncthreads();
+  if (tid < head) atomicAdd(&extra[base[lo + tid]], 1u);
+  const int64_t tail = body + (nvec << 4);
+  if (tail + tid < hi) atomicAdd(&extra[base[tail + tid]], 1u);
 
-  for (int v = tid; v < 256; v += kThreads) {
-    unsigned long long sum = 0;
-#pragma unroll
-    for (int c = 0; c < kBins; ++c) sum += bins[c * kStride + v];
-    if (slices == 1) {
-      out[static_cast<int64_t>(row) * 256 + v] = sum;
-    } else if (sum) {
-      atomicAdd(&out[static_cast<int64_t>(row) * 256 + v], sum);
-    }
+  const uint4* vec = reinterpret_cast<const uint4*>(base + body);
+  const uint32_t t4 = static_cast<uint32_t>(tid << 2) * 0x01010101u;
+  uint32_t sum[4] = {0, 0, 0, 0};
+  int64_t r = 0;
+  for (; r + kRoundVecs <= nvec; r += kRoundVecs) {
+    count_round<true>(vec, r, nvec, counters, extra, t4, tid);
+    __syncthreads();
+    flush(counters, tid, sum);
+    __syncthreads();
   }
+  if (r < nvec) {
+    count_round<false>(vec, r, nvec, counters, extra, t4, tid);
+    __syncthreads();
+    flush(counters, tid, sum);
+  }
+  __syncthreads();
+  uint4 mine = reinterpret_cast<const uint4*>(extra)[tid];
+  mine.x += sum[0];
+  mine.y += sum[1];
+  mine.z += sum[2];
+  mine.w += sum[3];
+
+  if (parts > 1) {  // the cluster's first CTA adds up the row
+    cg::cluster_group cluster = cg::this_cluster();
+    reinterpret_cast<uint4*>(extra)[tid] = mine;  // the slot this thread read
+    cluster.sync();
+    if (part == 0) {
+      for (int q = 1; q < parts; ++q) {
+        const uint4 o = cluster.map_shared_rank(reinterpret_cast<uint4*>(extra), q)[tid];
+        mine.x += o.x;
+        mine.y += o.y;
+        mine.z += o.z;
+        mine.w += o.w;
+      }
+    }
+    cluster.sync();  // no CTA leaves while its sums may still be read
+    if (part != 0) return;
+  }
+  ulonglong2* dst = reinterpret_cast<ulonglong2*>(out + static_cast<int64_t>(row) * 256 + 4 * tid);
+  dst[0] = make_ulonglong2(mine.x, mine.y);
+  dst[1] = make_ulonglong2(mine.z, mine.w);
 }
 
 }  // namespace
 
 extern "C" int dct_histogram(const void* blocks, long long row_stride, const void* lengths,
-                             void* out, int B, long long S, int slices, void* stream) {
+                             void* out, int B, long long S, int parts, void* stream) {
   if (B <= 0) return static_cast<int>(cudaGetLastError());
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (slices < 1) slices = 1;
-  if (slices > 1) {
-    const cudaError_t e = cudaMemsetAsync(out, 0, static_cast<size_t>(B) * 256 * 8, s);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int64_t span = ((S + slices - 1) / slices + 15) & ~int64_t{15};
-  histogram_kernel<<<static_cast<unsigned>(B) * static_cast<unsigned>(slices), kThreads, 0, s>>>(
-      static_cast<const uint8_t*>(blocks), row_stride, static_cast<const int32_t*>(lengths),
-      static_cast<unsigned long long*>(out), S, slices, span);
+  if (parts < 1 || parts > kMaxParts) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t span = ((S + parts - 1) / parts + 15) & ~int64_t{15};
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = static_cast<unsigned>(parts);
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B) * static_cast<unsigned>(parts));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, histogram_kernel, static_cast<const uint8_t*>(blocks), static_cast<int64_t>(row_stride),
+      static_cast<const int32_t*>(lengths), static_cast<unsigned long long*>(out),
+      static_cast<int64_t>(S), parts, span);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

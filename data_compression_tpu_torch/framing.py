@@ -160,9 +160,13 @@ def unpack_frame(data: bytes) -> Frame:
     if len(data) < off + nblocks * _ENTRY.size:
         raise ValueError("truncated frame: block table")
     entries = []
-    for _ in range(nblocks):
+    for k in range(nblocks):
         comp, raw, bcrc, bflags = _ENTRY.unpack_from(data, off)
         off += _ENTRY.size
+        # split_blocks never writes a longer block; the header CRC does not
+        # cover the table, and a decoder sizes its output by this length
+        if raw > bsize:
+            raise ValueError(f"block {k}: raw length {raw} exceeds the block size {bsize}")
         entries.append(BlockEntry(comp, raw, bcrc, bflags))
     payloads = []
     mv = memoryview(data)

@@ -1,8 +1,10 @@
 /* libdctpu — native CPU runtime of data_compression_tpu_torch.
  *
  * The port's own copy of data_compression_tpu/native/libdctpu.c:
- * everything from the first #include to the end is that file's text,
- * unchanged (tests/test_torch_native.py holds the two equal).  It
+ * everything from the first #include to the end is that file's text
+ * with one line added, sb_emit's refusal of word index 0xFF (scheme A
+ * has 127 slots a context, so the original reads one past its row;
+ * tests/test_torch_native.py holds the two equal up to that line).  It
  * carries the host halves the port runs on the CPU beside the card:
  *
  *   - the capped n-ary Huffman code-length builder
@@ -272,6 +274,7 @@ static int64_t sb_emit(const sb_dict *d, int ctx, int idx, uint8_t *out,
         return 1;
     }
     int s = idx - 0x80;
+    if (s >= SB_SLOTS) return DCT_ERR_FORMAT; /* 0xFF names no slot */
     int64_t st = d->start[ctx][s];
     int64_t ln = d->length[ctx][s];
     if (st < 0) {

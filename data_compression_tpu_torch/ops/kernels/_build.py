@@ -55,6 +55,7 @@ SIGNATURES = {
     "dct_table_build": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dct_histogram": [_P, _I64, _P, _P, _I, _I64, _I, _P],
     "dct_decode_tables": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "dct_decode_tables_floor": [_I, _P],
     "dct_nybble_encode": [_P, _I64, _P, _P, _I64, _P, _P, _I, _P],
     "dct_nybble_decode": [_P, _I64, _P, _P, _P, _P, _I64, _P, _I, _P],
     "dct_small_encode": [_I, _P, _I64, _P, _P, _I64, _P, _P, _I, _P],

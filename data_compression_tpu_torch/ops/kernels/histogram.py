@@ -27,9 +27,9 @@ import torch
 
 from data_compression_tpu_torch.ops.kernels import _build
 
-CTAS_PER_SM = 4  # a row is cut into slices until B * slices reaches this many CTAs per SM
-MIN_SLICE = 4096  # bytes: no slice shorter than this
-MAX_SLICE = 1 << 30  # bytes: no slice longer (a warp's 32-bit bins cannot overflow)
+CTAS_PER_SM = 12  # the kernel's resident CTAs an SM: a batch is cut until it fills them
+MIN_SLICE = 16384  # bytes: a CTA's round (64 threads x 256 bytes); no slice is cut shorter
+MAX_SLICES = 8  # a row's slices are one thread-block cluster (the portable size)
 
 
 def _check(blocks, lengths):
@@ -55,10 +55,13 @@ def block_histograms_ref(blocks: torch.Tensor, lengths: torch.Tensor) -> torch.T
 
 
 def slices_for(B: int, S: int, sms: int) -> int:
-    """Slices per row: enough for ``sms`` SMs, none under MIN_SLICE bytes
-    unless the row is, none over MAX_SLICE."""
-    want = -(-CTAS_PER_SM * sms // max(B, 1))
-    return max(1, min(want, S // MIN_SLICE), -(-S // MAX_SLICE))
+    """Slices (CTAs of one cluster) per row, 1, 2, 4 or 8: doubled while
+    the B rows' CTAs fill fewer than CTAS_PER_SM on each of ``sms`` SMs
+    and each slice keeps at least MIN_SLICE bytes."""
+    slices = 1
+    while slices < MAX_SLICES and B * slices < CTAS_PER_SM * sms and S >= 2 * slices * MIN_SLICE:
+        slices *= 2
+    return slices
 
 
 def block_histograms(blocks: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

@@ -208,9 +208,9 @@ def decode_tables(rows, arity):
     rows = rows.contiguous()
     _build.require_cuda(rows)
     B, L, dev = rows.shape[0], ARITY_MAX_LEN[arity], rows.device
-    limit = torch.empty((B, L + 1), dtype=torch.int32, device=dev)
-    bmf = torch.empty((B, L + 1), dtype=torch.int32, device=dev)
-    symbols = torch.empty((B, S), dtype=torch.int32, device=dev)
+    out = torch.empty(B * (2 * (L + 1) + S), dtype=torch.int32, device=dev)  # one allocation
+    limit, bmf, symbols = out.split([B * (L + 1), B * (L + 1), B * S])
+    limit, bmf, symbols = limit.view(B, L + 1), bmf.view(B, L + 1), symbols.view(B, S)
     if B:
         with torch.cuda.device(dev):
             rc = _build.lib().dct_decode_tables(rows.data_ptr(), limit.data_ptr(),
@@ -222,3 +222,12 @@ def decode_tables(rows, arity):
 
 
 decode_tables.launches = 0
+
+
+def decode_tables_floor(rows):
+    """Launch an empty kernel on ``decode_tables``' grid for ``rows``
+    (CUDA tensors only): the launch floor its time is read against."""
+    _build.require_cuda(rows)
+    with torch.cuda.device(rows.device):
+        rc = _build.lib().dct_decode_tables_floor(rows.shape[0], _build.stream_of(rows))
+    _build.check(rc, "decode_tables_floor")

@@ -4,12 +4,15 @@
 
 For n = 2, 16 and 3 on the chip smoke run's input (a seeded enwik-like
 corpus plus one deep-code block, 64 KiB blocks): ms per call of the
-per-block histogram on that input and on the same size of one byte value
-(0), of the code lengths and encode table from the histograms
+per-block histogram on that input, on the same size of one byte value
+(0) and of one random 16-byte record repeated (period 16), and on the
+first streamed batch (``api.DEFAULT_BATCH_BLOCKS`` blocks) of each, of
+the code lengths and encode table from the histograms
 (``build_tables``), of the code lengths alone (``huffman_lengths``), of
 ``device_api.compress_blocks_device``, of the decode tables from the
-compressed table rows by their kernel (``decode_tables``) and by their
-plain torch ops (``decode_tables_device``), and of
+compressed table rows by their kernel (``decode_tables``), by an empty
+kernel on its grid (``decode_tables_floor``, where the package timed has
+it) and by their plain torch ops (``decode_tables_device``), and of
 ``device_api.decode_blocks_device``; then, for each serial codec
 (nybble, small_byte, small_nybble), of its encode lane on the blocks and
 of its decode lane on that lane's payloads (``ops/kernels/
@@ -36,7 +39,7 @@ import sys
 import numpy as np
 import torch
 
-from data_compression_tpu_torch import CodecConfig, device_api, framing
+from data_compression_tpu_torch import CodecConfig, api, device_api, framing
 from data_compression_tpu_torch.ops.kernels import compact as kcompact
 from data_compression_tpu_torch.ops.kernels import histogram as khist
 from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
@@ -64,6 +67,9 @@ def main(argv=None) -> int:
     dev_blocks = torch.from_numpy(blocks).to(dev)
     dev_lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
     one = torch.zeros_like(dev_blocks)
+    record = torch.from_numpy(np.random.default_rng(SEED).integers(0, 256, 16, dtype=np.uint8))
+    period = record.to(dev).repeat(dev_blocks.numel() // 16).view(dev_blocks.shape)
+    batch = api.DEFAULT_BATCH_BLOCKS
     hists = khist.block_histograms(dev_blocks, dev_lens)
     ctx_blocks, ctx_lens = framing.split_blocks(
         b"".join(deep_code_block(65536, seed) for seed in range(size // 65536)),
@@ -85,15 +91,25 @@ def main(argv=None) -> int:
             steps = {
                 "histogram": lambda: khist.block_histograms(dev_blocks, dev_lens),
                 "histogram_one_value": lambda: khist.block_histograms(one, dev_lens),
+                "histogram_period16": lambda: khist.block_histograms(period, dev_lens),
+                "histogram_batch": lambda: khist.block_histograms(dev_blocks[:batch],
+                                                                  dev_lens[:batch]),
+                "histogram_batch_one_value": lambda: khist.block_histograms(one[:batch],
+                                                                            dev_lens[:batch]),
+                "histogram_batch_period16": lambda: khist.block_histograms(period[:batch],
+                                                                           dev_lens[:batch]),
                 "tables": lambda: ktb.build_tables(hists, n),
                 "lengths": lambda: ktb.huffman_lengths(hists, n),
                 "compress": lambda: device_api.compress_blocks_device(dev_blocks, dev_lens, cfg,
                                                                       device=dev),
                 "decode_tables": lambda: ktb.decode_tables(dc.table_rows, n),
+                "decode_tables_floor": lambda: ktb.decode_tables_floor(dc.table_rows),
                 "decode_tables_plain": lambda: tbd.decode_tables_device(dc.table_rows, n),
                 "decompress": lambda: device_api.decode_blocks_device(
                     *inputs, dc.table_rows, n, cfg.chunk_syms, device=dev),
             }
+            if not hasattr(ktb, "decode_tables_floor"):  # a package from before it
+                del steps["decode_tables_floor"]
             row = {"root": root, "rep": rep, "arity": n, "mib": args.mib, "card": card}
             for name, step in steps.items():
                 row[f"{name}_ms"] = ms(step)

@@ -166,10 +166,8 @@ def payload_mix(kind: str, S: int, count: int, seed: int, real: bytes) -> tuple:
     ending at the body's end, with a raw length one step past it or a
     literal's second nybble past it), the real payload ``real`` of S
     bytes with 1-4 bytes flipped, the same cut short, and random bodies
-    behind the type byte (small_byte's 0xFF, which the native decoder
-    reads past its table, left out)."""
+    behind the type byte."""
     rng = np.random.default_rng(seed)
-    top = 255 if kind == "small_byte" else 256
     type_byte = 0xAF if kind == "nybble" else 8
     payloads, raws = [], []
     for k in range(count):
@@ -182,12 +180,12 @@ def payload_mix(kind: str, S: int, count: int, seed: int, real: bytes) -> tuple:
         elif k % 4 == 1:
             b = bytearray(real)
             for j in rng.integers(2, len(b), int(rng.integers(1, 5))):
-                b[j] = int(rng.integers(0, top))
+                b[j] = int(rng.integers(0, 256))
             p, n = bytes(b), S
         elif k % 4 == 2:
             p, n = real[: int(rng.integers(0, len(real)))], S
         else:
-            body = rng.integers(0, top, int(rng.integers(0, S + S // 8)), np.uint8).tobytes()
+            body = rng.integers(0, 256, int(rng.integers(0, S + S // 8)), np.uint8).tobytes()
             p = bytes([type_byte]) + body
             n = int(rng.integers(1, S + 1))
         payloads.append(p)

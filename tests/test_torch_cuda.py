@@ -46,6 +46,7 @@ from data_compression_tpu_torch.utils.corpora import (
 from data_compression_tpu_torch.ops import scan_codecs as psc
 from data_compression_tpu_torch.ops.kernels import serial_lanes as lanes
 from torch_cases import (
+    HIST_ROW_KINDS,
     LANE_KINDS,
     decode_table_rows,
     decoded_as_native,
@@ -785,7 +786,9 @@ def _hist_views(blocks, dev):
 
 
 @pytest.mark.parametrize("B", [1, 7, 256, 1024])
-@pytest.mark.parametrize("S,kind", [(65536, "edges"), (4104, "edges"), (65536, "full")])
+@pytest.mark.parametrize("S,kind", [(65536, "edges"), (4104, "edges"), (65536, "full"),
+                                    (65536, "period16"), (4104, "period16"),
+                                    (65536, "one_value")])
 def test_histogram_kernel_matches_plain_version(cuda, B, S, kind):
     blocks, lengths = hist_blocks(kind, B, S, B + S)
     want = np.stack([np.bincount(blocks[i, :lengths[i]], minlength=256) for i in range(B)])
@@ -799,6 +802,21 @@ def test_histogram_kernel_matches_plain_version(cuda, B, S, kind):
         assert np.array_equal(got.cpu().numpy(), want), name
     if B == 1 and S >= 2 * khist.MIN_SLICE:  # a row cut into slices, added up atomically
         assert khist.slices_for(B, S, torch.cuda.get_device_properties(cuda).multi_processor_count) > 1
+
+
+@pytest.mark.parametrize("kind", HIST_ROW_KINDS)
+def test_histogram_kernel_past_the_flush_limit(cuda, kind):
+    """One row of 1 MiB (8 slices of 8 rounds: one value takes every
+    counter of a thread to its flush limit), in each view."""
+    S = 1 << 20
+    blocks, lengths = hist_blocks(kind, 1, S, 11)
+    assert khist.slices_for(1, S, torch.cuda.get_device_properties(cuda).multi_processor_count) == 8
+    want = np.bincount(blocks[0], minlength=256)[None]
+    lens = torch.from_numpy(lengths).to(cuda)
+    for name, view in _hist_views(blocks, cuda).items():
+        got = block_histograms(view, lens)
+        assert torch.equal(got, khist.block_histograms_ref(view, lens)), name
+        assert np.array_equal(got.cpu().numpy(), want), name
 
 
 def test_histograms_make_no_host_read(cuda):
@@ -869,7 +887,7 @@ def test_device_pipeline_overflow_compacts_again_on_download(cuda):
 
 
 @pytest.mark.parametrize("n", ARITIES)
-@pytest.mark.parametrize("B", [0, 1, 1023, 1024])
+@pytest.mark.parametrize("B", [0, 1, 7, 9, 1023, 1024])
 def test_decode_tables_kernel_matches_plain_version(cuda, B, n):
     """Real rows, a complete tree at the cap, empty and one-symbol rows,
     random lengths 0..L and rows the encoder never writes, in turn:
@@ -881,6 +899,22 @@ def test_decode_tables_kernel_matches_plain_version(cuda, B, n):
     want = ktb.decode_tables(rows, n)  # the plain version, on the CPU
     for g, w in zip(got, want):
         assert g.dtype == torch.int32 and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n", ARITIES)
+def test_decode_tables_outputs_do_not_overlap(cuda, n):
+    """The wrapper's one allocation gives three contiguous int32 tensors
+    of the plain version's shapes over disjoint bytes; the empty kernel
+    on the same grid launches."""
+    B, L = 9, ARITY_MAX_LEN[n]
+    rows = torch.from_numpy(decode_table_rows("mixed", n, B, n)).to(cuda)
+    outs = ktb.decode_tables(rows, n)
+    assert [tuple(t.shape) for t in outs] == [(B, L + 1), (B, L + 1), (B, 256)]
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * 4) for t in outs)
+    assert all(t.is_contiguous() and t.dtype == torch.int32 for t in outs)
+    assert all(end <= start for (_, end), (start, _) in zip(spans, spans[1:]))
+    ktb.decode_tables_floor(rows)
+    torch.cuda.synchronize()
 
 
 def _as_read(flat, off, C, n):

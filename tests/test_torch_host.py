@@ -282,13 +282,13 @@ def test_from_arrays_and_to_device(kind):
 
 
 @pytest.mark.parametrize("kind", ["enwik", "single", "empty_row", "zero_and_255", "edge_lengths",
-                                  "s4104", "odd_offset"])
+                                  "s4104", "odd_offset", "period16"])
 def test_block_histograms_match(kind):
     """The port's histogram (on the CPU its plain version) equals the JAX
     package's one-hot matmul (run on the CPU) and numpy, with padding
     dropped: text, one byte value, random bytes, all-0 and all-255 rows,
-    lengths 0, 1, S-1 and S, S = 4104 (no multiple of 16), and a row view
-    at an odd offset of a flat buffer."""
+    lengths 0, 1, S-1 and S, S = 4104 (no multiple of 16), a row view
+    at an odd offset of a flat buffer, and a 16-byte record repeated."""
     from data_compression_tpu.ops.histogram import block_histograms as j_hist
 
     rng = np.random.default_rng(3)
@@ -298,6 +298,8 @@ def test_block_histograms_match(kind):
         blocks = np.frombuffer(enwik_like(B * S, 9), np.uint8).reshape(B, S).copy()
     elif kind == "single":
         blocks = np.full((B, S), 200, np.uint8)
+    elif kind == "period16":
+        blocks = hist_blocks("period16", B, S, 4)[0]
     elif kind == "empty_row":
         blocks = rng.integers(0, 256, (B, S), dtype=np.uint8)
     elif kind == "zero_and_255":

@@ -29,12 +29,26 @@ def _from_first_include(path: Path) -> str:
     return text[text.index("\n#include") + 1:]
 
 
+# The one hunk the port adds to the JAX file: sb_emit refuses word index
+# 0xFF (scheme A has 127 slots a context; the original reads start[ctx][127]).
+SB_EMIT_HUNK = (
+    "    int s = idx - 0x80;\n    int64_t st = d->start[ctx][s];\n",
+    "    int s = idx - 0x80;\n"
+    "    if (s >= SB_SLOTS) return DCT_ERR_FORMAT; /* 0xFF names no slot */\n"
+    "    int64_t st = d->start[ctx][s];\n",
+)
+
+
 def test_source_is_the_originals():
     """The port's libdctpu.c is the JAX package's, from the first
-    #include to the end; only the header comment differs."""
+    #include to the end, with exactly the one sb_emit hunk applied; only
+    the header comment differs besides."""
     port = ROOT / "data_compression_tpu_torch" / "native" / "libdctpu.c"
     orig = ROOT / "data_compression_tpu" / "native" / "libdctpu.c"
-    assert _from_first_include(port) == _from_first_include(orig)
+    old, new = SB_EMIT_HUNK
+    orig_text = _from_first_include(orig)
+    assert orig_text.count(old) == 1
+    assert _from_first_include(port) == orig_text.replace(old, new)
     assert port.read_text().startswith("/* libdctpu — native CPU runtime of data_compression_tpu_torch.")
 
 

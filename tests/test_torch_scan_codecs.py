@@ -134,14 +134,13 @@ def test_corrupt_payloads_raise(kind):
 def test_random_payloads_decode_as_the_native_runtime_does(kind):
     """On random payload bytes behind a right type byte the plain decode
     lane refuses exactly the blocks the native decoder refuses, and gives
-    the native decoder's bytes for the rest (small_byte's 0xFF, which the
-    C reads past its table, is left out of the bodies)."""
+    the native decoder's bytes for the rest (small_byte's 0xFF, which
+    names no slot, included)."""
     rng = np.random.default_rng(84)
     type_byte = psc.TYPE_BYTE[kind]
     payloads, raw_lens = [], []
     for k in range(24):
-        top = 255 if kind == "small_byte" else 256
-        body = rng.integers(0, top, int(rng.integers(0, 40)), dtype=np.uint8).tobytes()
+        body = rng.integers(0, 256, int(rng.integers(0, 40)), dtype=np.uint8).tobytes()
         payloads.append(bytes([type_byte]) + body)
         raw_lens.append(int(rng.integers(0, 60)))
     payloads[0] = b""  # raw length 0 decodes to nothing whatever the payload

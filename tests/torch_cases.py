@@ -6,11 +6,22 @@ import numpy as np
 from data_compression_tpu_torch.utils.corpora import enwik_like
 
 
+HIST_ROW_KINDS = ("period16", "one_value")
+
+
 def hist_blocks(kind, B, S, seed):
     """([B, S] uint8 blocks, [B] int64 lengths) of one histogram case:
     rows of text, all zeros, all 255 and random bytes in turn, the lengths
-    S, 0, 1, S - 1 and random in turn ("edges"), or full ("full")."""
+    S, 0, 1, S - 1 and random in turn ("edges"), or full ("full"); or
+    full rows of one random 16-byte record repeated ("period16": every
+    thread of the kernel loads the same vector) or of one random byte
+    value ("one_value": from S = 1 MiB at B = 1 every counter the kernel
+    keeps reaches its flush limit)."""
     rng = np.random.default_rng(seed)
+    if kind in HIST_ROW_KINDS:
+        width = 16 if kind == "period16" else 1
+        rec = rng.integers(0, 256, width, dtype=np.uint8)
+        return np.tile(rec, (B, -(-S // width)))[:, :S].copy(), np.full(B, S, np.int64)
     text = np.frombuffer(enwik_like(S, seed), np.uint8)
     rows = [text, np.zeros(S, np.uint8), np.full(S, 255, np.uint8),
             rng.integers(0, 256, S, dtype=np.uint8)]
