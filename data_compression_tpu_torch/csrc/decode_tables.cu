@@ -75,15 +75,16 @@ decode_tables_kernel(const uint8_t* __restrict__ rows, int32_t* __restrict__ lim
   reinterpret_cast<int4*>(count)[2 * lane + 1] = make_int4(0, 0, 0, 0);
   __syncwarp();
 
-  // stable ranks within each length, slot by slot
+  // stable ranks within each length, slot by slot, packed 4 to a word
+  // (each below 256): computed as they come, nothing deferred stays live
   const unsigned below = (1u << lane) - 1u;
-  int rank[kSlots];
+  uint32_t rank[kSlots / 4] = {0, 0};
   int longest = 0;
 #pragma unroll
   for (int j = 0; j < kSlots; ++j) {
     const unsigned same = __match_any_sync(kFull, len[j]);
     const int earlier = count[len[j]];
-    rank[j] = earlier + __popc(same & below);
+    rank[j / 4] |= static_cast<uint32_t>(earlier + __popc(same & below)) << (8 * (j % 4));
     __syncwarp();
     if ((same & below) == 0) count[len[j]] = earlier + __popc(same);
     __syncwarp();
@@ -119,8 +120,10 @@ decode_tables_kernel(const uint8_t* __restrict__ rows, int32_t* __restrict__ lim
   __syncwarp();
 
 #pragma unroll
-  for (int j = 0; j < kSlots; ++j)
-    if (len[j] > 0) sym[count[len[j]] + rank[j]] = 32 * j + lane;
+  for (int j = 0; j < kSlots; ++j) {
+    const int r = (rank[j / 4] >> (8 * (j % 4))) & 0xff;
+    if (len[j] > 0) sym[count[len[j]] + r] = 32 * j + lane;
+  }
   const int base = lane <= L ? count[lane] : 0;
   __syncwarp();
 #pragma unroll

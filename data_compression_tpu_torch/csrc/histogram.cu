@@ -8,25 +8,29 @@
 //
 // What bounds it on the card: bytes, S per row read once and 2 KiB of
 // counts written (64 MiB in: 0.0200 ms at 3.35 TB/s), if the counting
-// keeps up with the loads: 13 bytes a cycle on each SM.  A byte costs at
-// least one shared-memory read and write, and an SM moves one warp-wide
-// shared access a cycle, so the count per byte has to stay small and not
-// depend on the data.  Design:
+// keeps up with the loads: 13 bytes a cycle on each SM.  The SASS of a
+// byte has to stay short and not depend on the data.  Design:
 //   * thread-private 8-bit counters, four to a 32-bit word in shared
 //     memory: thread t's counter of value v is byte (v & 3) of word
 //     (v >> 2) * 64 + t, so the 32 lanes of a warp always hit 32 banks
-//     and no two threads share a counter: a byte is a plain load, add
-//     and store, whatever the data (text, one value, a period of 16);
-//   * its address is one `prmt` per byte: per 4-byte word, one `lop3`
-//     puts (v & 3) | t << 2 in each byte and one shift and `lop3` put
-//     v >> 2 in each byte; the permute takes byte j of both, and the
-//     second one's sign (always 0) for the high half;
-//   * a CTA is two warps (16 KiB of counters, 12 CTAs an SM); each round
-//     a thread loads sixteen 16-byte vectors (a warp reads 512 contiguous
-//     bytes a load), so a counter takes at most 255 of a round's 256
-//     bytes: the round's 256th byte, and the bytes before the first and
-//     after the last whole vector (any row base, stride and S), go to a
-//     shared 32-bit bin by an atomic;
+//     and no two threads share a counter, whatever the data (text, one
+//     value, a period of 16);
+//   * a byte is one shared atomic add whose result is not read (`ATOMS`,
+//     1 << 8 (v & 3) into the word), so no byte waits for the one
+//     before it: a load, add and store of the counter ran 1.66x slower,
+//     each byte's load issued after the store before it (they may
+//     alias) and its add waiting out the load's latency (PERF.md, PR 16);
+//   * the word's address is one `prmt` per byte: per 4-byte word one
+//     shift and `lop3` put v >> 2 in each byte, and the permute takes
+//     t << 2 for the low byte, byte j for the next and its sign (always
+//     0) for the high half; the increment's shift, 8 (v & 3), is one
+//     shift and `lop3` per word and a funnel shift per byte;
+//   * a CTA is two warps (16 KiB of counters); each round a thread
+//     counts up to sixteen 16-byte vectors (a warp reads 512 contiguous
+//     bytes a load, four loads in flight), so a counter takes at most 255
+//     of its 256 bytes: the round's 256th byte of a thread, and the bytes
+//     before the first and after the last whole vector (any row base,
+//     stride and S), go to a shared 32-bit bin;
 //   * after a round the counters are flushed: thread t sums the 64
 //     counter words of values 4t..4t+3 (16 conflict-free 16-byte loads,
 //     the bytes added in 16-bit pairs) into four 32-bit sums it keeps in
@@ -51,7 +55,8 @@ constexpr int kVecs = 16;                       // 16-byte vectors a thread coun
 constexpr int64_t kRoundVecs = kThreads * kVecs;  // 16 KiB a round
 constexpr int kCounterBytes = 256 * kThreads;   // 16 KiB of 8-bit counters
 constexpr int kMaxParts = 8;                    // portable cluster size
-constexpr int kCtasPerSm = 12;                  // 17 KiB of shared memory a CTA
+constexpr int kAhead = 4;                       // loads in flight a thread
+constexpr int kCtasPerSm = 10;                  // 17 KiB of shared memory a CTA
 
 __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
   uint32_t d;
@@ -59,19 +64,24 @@ __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
   return d;
 }
 
-__device__ __forceinline__ void bump(uint8_t* counters, uint32_t at) {
-  counters[at] = static_cast<uint8_t>(counters[at] + 1);
-}
-
 // Count the bytes of word w from byte kFrom on; t4 = (tid << 2) in every byte.
 template <int kFrom>
 __device__ __forceinline__ void count_word(uint8_t* counters, uint32_t w, uint32_t t4) {
-  const uint32_t lo = (w & 0x03030303u) | t4;  // (v & 3) | t << 2: address bits 0-7
   const uint32_t hi = (w >> 2) & 0x3f3f3f3fu;  // v >> 2: address bits 8-13
-  if (kFrom <= 0) bump(counters, prmt(lo, hi, 0xCC40u));
-  if (kFrom <= 1) bump(counters, prmt(lo, hi, 0xDD51u));
-  bump(counters, prmt(lo, hi, 0xEE62u));
-  bump(counters, prmt(lo, hi, 0xFF73u));
+  const uint32_t sh = (w << 3) & 0x18181818u;  // 8 (v & 3): the counter's bit in its word
+  auto add = [&](uint32_t sel, uint32_t shift) {
+    atomicAdd(reinterpret_cast<uint32_t*>(counters + prmt(t4, hi, sel)),
+              __funnelshift_l(0u, 1u, shift));  // 1 << (shift & 31)
+  };
+  if (kFrom <= 0) add(0xCC40u, sh);
+  if (kFrom <= 1) add(0xDD50u, sh >> 8);
+  add(0xEE60u, sh >> 16);
+  add(0xFF70u, sh >> 24);
+}
+
+template <bool kFull>
+__device__ __forceinline__ uint4 fetch(const uint4* __restrict__ vec, int64_t i, int64_t nvec) {
+  return kFull || i < nvec ? __ldg(vec + i) : make_uint4(0, 0, 0, 0);
 }
 
 // One round: vectors first + k * kThreads + tid, k < kVecs, below nvec.
@@ -79,12 +89,16 @@ template <bool kFull>
 __device__ __forceinline__ void count_round(const uint4* __restrict__ vec, int64_t first,
                                             int64_t nvec, uint8_t* counters, uint32_t* extra,
                                             uint32_t t4, int tid) {
+  uint4 ring[kAhead];
+#pragma unroll
+  for (int k = 0; k < kAhead; ++k) ring[k] = fetch<kFull>(vec, first + k * kThreads + tid, nvec);
 #pragma unroll
   for (int k = 0; k < kVecs; ++k) {
-    const int64_t i = first + k * kThreads + tid;
-    if (kFull || i < nvec) {
-      const uint4 a = __ldg(vec + i);
-      if (kFull && k == kVecs - 1) {  // the round's 256th byte
+    const uint4 a = ring[k % kAhead];
+    if (k + kAhead < kVecs)
+      ring[k % kAhead] = fetch<kFull>(vec, first + (k + kAhead) * kThreads + tid, nvec);
+    if (kFull || first + k * kThreads + tid < nvec) {
+      if (k == kVecs - 1) {  // the thread's 256th byte of the round
         atomicAdd(&extra[a.x & 0xffu], 1u);
         count_word<1>(counters, a.x, t4);
       } else {

@@ -29,7 +29,9 @@ may sum past 2**31 there too); ``build_tables_ref``, that followed by
 ``decode_tables`` (kernel: ``csrc/decode_tables.cu``) replaces the JAX
 ``decode_tables_device`` (``jnp`` ops, no Pallas kernel): [B, 256] uint8
 wire length rows -> the decode kernel's tables in one launch, bit-identical
-to its plain version ``ops.table_build.decode_tables_device``.
+to its plain version ``ops.table_build.decode_tables_device``; the three
+tables are views of one allocation.  ``decode_tables_floor`` launches an
+empty kernel on the same grid, the launch floor its time is read against.
 """
 
 from __future__ import annotations

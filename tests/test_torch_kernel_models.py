@@ -44,7 +44,7 @@ def prmt(a, b, sel):
     return out.astype(np.uint32)
 
 
-SELECTORS = (0xCC40, 0xDD51, 0xEE62, 0xFF73)  # count_word's permutes, byte j = 0..3
+SELECTORS = (0xCC40, 0xDD50, 0xEE60, 0xFF70)  # count_word's permutes, byte j = 0..3
 
 
 def _model_cta(data, addr0, lo, hi):
@@ -61,7 +61,6 @@ def _model_cta(data, addr0, lo, hi):
     tid = np.arange(THREADS)
     t4 = (tid.astype(np.uint32) << 2) * np.uint32(0x01010101)
     for r in range(0, nvec, ROUND_VECS):
-        full = r + ROUND_VECS <= nvec
         counters = np.zeros(256 * THREADS, np.int64)
         for k in range(VECS):
             i = r + k * THREADS + tid
@@ -69,20 +68,22 @@ def _model_cta(data, addr0, lo, hi):
             vec = data[body + 16 * i[live, None] + np.arange(16)].reshape(-1, 4, 4)
             words = vec.astype(np.uint32) @ (np.uint32(1) << (8 * np.arange(4, dtype=np.uint32)))
             for w in range(4):
-                lo_w = (words[:, w] & np.uint32(0x03030303)) | t4[live]
                 hi_w = (words[:, w] >> np.uint32(2)) & np.uint32(0x3F3F3F3F)
+                sh_w = (words[:, w] << np.uint32(3)) & np.uint32(0x18181818)
                 for j, sel in enumerate(SELECTORS):
                     v = vec[:, w, j].astype(np.int64)
-                    if full and k == VECS - 1 and w == 0 and j == 0:  # the round's 256th byte
+                    if k == VECS - 1 and w == 0 and j == 0:  # a thread's 256th byte of a round
                         np.add.at(extra, v, 1)
                         continue
-                    at = prmt(lo_w, hi_w, sel).astype(np.int64)
-                    assert np.array_equal(at, (v >> 2) * 256 + tid[live] * 4 + (v & 3))
+                    at = prmt(t4[live], hi_w, sel).astype(np.int64)  # the counter word's byte address
+                    inc = np.uint32(1) << ((sh_w >> np.uint32(8 * j)) & np.uint32(31))
+                    assert np.array_equal(at, (v >> 2) * 256 + tid[live] * 4)
+                    assert np.array_equal(inc, np.uint32(1) << (8 * (v & 3)).astype(np.uint32))
                     for warp in range(2):  # one instruction: 32 lanes, 32 banks
                         lanes = (tid[live] >> 5) == warp
                         banks = (at[lanes] >> 2) & 31
                         assert len(set(banks.tolist())) == int(lanes.sum())
-                    np.add.at(counters, at, 1)
+                    np.add.at(counters, at + (v & 3), 1)
         assert counters.max(initial=0) <= 255, "a counter passed 255 within a round"
         words = counters.reshape(THREADS, 64, 4)  # [group t][thread][byte v & 3]
         even = words[:, :, 0] + (words[:, :, 2] << 16)
@@ -117,12 +118,12 @@ def _bincounts(blocks, lengths):
                      for i in range(len(lengths))])
 
 
-@pytest.mark.parametrize("B,S,want", [(1024, 65536, 2), (DEFAULT_BATCH_BLOCKS, 65536, 4),
+@pytest.mark.parametrize("B,S,want", [(1024, 65536, 1), (DEFAULT_BATCH_BLOCKS, 65536, 2),
                                       (1, 65536, 4), (1, 1 << 20, 8), (7, 65536, 4),
                                       (1, 4104, 1), (2000, 65536, 1), (1, 32767, 1)])
 def test_slices_for_fills_the_card(B, S, want):
     """The main path's 64 MiB (1,024 rows), the streamed batch (256
-    rows) and one row: slices double while the CTAs fill fewer than 12 an
+    rows) and one row: slices double while the CTAs are fewer than 3 an
     SM and each keeps a 16 KiB round."""
     got = khist.slices_for(B, S, H100_SMS)
     assert got == want
@@ -139,6 +140,17 @@ def test_histogram_model_matches_numpy(kind, slices, offset):
         blocks, lengths = hist_blocks(kind, 5, S, S + slices)
         got = model_histograms(blocks, lengths, slices, offset)
         assert np.array_equal(got, _bincounts(blocks, lengths))
+
+
+@pytest.mark.parametrize("offset", [1, 15])
+def test_histogram_model_partial_rounds_stay_under_the_flush_limit(offset):
+    """Rows of one value at an odd offset: each 16 KiB slice has 1,023
+    whole vectors, a round short of full in which all threads but one
+    still count 16 vectors (256 bytes)."""
+    blocks, lengths = hist_blocks("one_value", 2, 65536, 8)
+    lengths[1] = 65536 - 100
+    got = model_histograms(blocks, lengths, 4, offset)
+    assert np.array_equal(got, _bincounts(blocks, lengths))
 
 
 @pytest.mark.parametrize("kind", HIST_ROW_KINDS)
