@@ -104,9 +104,11 @@ script exits non-zero without a result line):
      are printed; a printable round trip of one 16 MiB batch must be
      exact;
  10. the histogram kernel against its plain version (``index_add_``)
-     on the 64 MiB input and on 64 MiB of one byte value, and on the
-     first 256 blocks of each (one streamed batch, whose rows the kernel
-     cuts into slices on the card), byte for byte, all timed; then the device-resident pipeline at n = 2, 16
+     and numpy on the 64 MiB input, on 64 MiB of one byte value and on 64
+     MiB of a 16-byte record repeated, on the first 256 blocks of each
+     (one streamed batch) and on their first 7 (whose rows the kernel
+     cuts into slices, a thread-block cluster a row), byte for byte,
+     all timed; then the device-resident pipeline at n = 2, 16
      and 3 on the 64 MiB input: the table-build kernel's code lengths and
      encode table (``build_tables``, one launch) must equal its plain
      version's and the native builder's; ``compress_blocks_device`` and
@@ -136,8 +138,11 @@ library ms, the time of one PyTorch call computing the same function,
 or null; the histogram has one entry (arity null) whose launches sum
 phases 4, 5, 9 and 10, whose library ms is its ``index_add_`` plain
 version's, ``one_value_ms`` / ``one_value_plain_ms`` on the
-one-value input, and ``batch_*`` on the first 256 blocks
-(``batch_slices`` slices a row); the table build's ``lengths_only_ms`` is the same
+one-value input, ``period16_*`` on the 16-byte record, ``batch_*`` and
+``period16_batch_*`` on the first 256 blocks (``batch_slices`` slices a
+row; ``small_batch_slices`` for 7 blocks); the decode tables have
+``launch_floor_ms``, the device ms of an empty kernel on their grid;
+the table build's ``lengths_only_ms`` is the same
 kernel writing lengths alone (``huffman_lengths``); the histogram, the
 table build and the decode tables have ``device_ms`` (their chain times
 include the wrapper's enqueue, which can outlast the kernel; the decode
@@ -1173,10 +1178,11 @@ def histogram_phase(data: bytes, dev, card: str) -> dict:
     """The histogram kernel against its plain version (``index_add_``) and
     numpy's counts on the 64 MiB input, on 64 MiB of one byte value (0,
     zero padding) and on 64 MiB of one random 16-byte record repeated
-    (period 16: every thread loads the same vector), and on the first
-    streamed batch's 256 blocks of each, whose rows the kernel cuts into
-    slices (phase 9's shape), byte for byte; -> its kernels-line entry,
-    with the one-value, period-16 and batch times."""
+    (period 16: every thread loads the same vector), on the first
+    streamed batch's 256 blocks of each (phase 9's shape) and on their
+    first 7 blocks, whose rows the kernel cuts into slices (a cluster a
+    row), byte for byte; -> its kernels-line entry, with the one-value,
+    period-16 and batch times."""
     import numpy as np
     import torch
 
@@ -1201,22 +1207,23 @@ def histogram_phase(data: bytes, dev, card: str) -> dict:
     want_one = np.zeros_like(want)
     want_one[:, 0] = lengths
     want_period = counts(period_host)
-    batch = api.DEFAULT_BATCH_BLOCKS
+    batch, small = api.DEFAULT_BATCH_BLOCKS, 7
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slices = khist.slices_for(batch, blocks.shape[1], sms)
+    small_slices = khist.slices_for(small, blocks.shape[1], sms)
+    if small_slices < 2:
+        raise AssertionError(f"a batch of {small} blocks is not cut into slices ({small_slices})")
     errs = []
     for name, rows, wanted in (("text", dev_blocks, want), ("one value", one, want_one),
                                ("period 16", period, want_period)):
-        for what, rws, lens, w, mask in (("64 MiB", rows, dev_lens, wanted, everywhere),
-                                         (f"{batch} blocks", rows[:batch], dev_lens[:batch],
-                                          wanted[:batch], everywhere[:batch])):
+        for n_rows in (len(lengths), batch, small):
+            rws, lens, w = rows[:n_rows], dev_lens[:n_rows], wanted[:n_rows]
             got = khist.block_histograms(rws, lens)
-            errs.append(max_abs_err(got, khist.block_histograms_ref(rws, lens), mask))
+            errs.append(max_abs_err(got, khist.block_histograms_ref(rws, lens),
+                                    everywhere[:n_rows]))
             if not np.array_equal(got.cpu().numpy(), w):
-                raise AssertionError(f"histogram kernel ({name}, {what}) differs from numpy's "
-                                     "counts")
-    slices = khist.slices_for(batch, blocks.shape[1],
-                              torch.cuda.get_device_properties(dev).multi_processor_count)
-    if slices < 2:
-        raise AssertionError(f"a batch of {batch} blocks is not cut into slices ({slices})")
+                raise AssertionError(f"histogram kernel ({name}, {n_rows} blocks) differs from "
+                                     "numpy's counts")
     part, part_lens, part_one = dev_blocks[:batch], dev_lens[:batch], one[:batch]
     part_period = period[:batch]
     got = khist.block_histograms(dev_blocks, dev_lens)
@@ -1231,7 +1238,7 @@ def histogram_phase(data: bytes, dev, card: str) -> dict:
         library_ms=plain_ms,  # the plain version is one index_add_ (and its index math)
         one_value_ms=chain_ms(lambda: khist.block_histograms(one, dev_lens)),
         one_value_plain_ms=chain_ms(lambda: khist.block_histograms_ref(one, dev_lens)),
-        batch_slices=slices,
+        batch_slices=slices, small_batch_slices=small_slices,
         batch_ms=chain_ms(lambda: khist.block_histograms(part, part_lens)),
         batch_device_ms=timing.device_ms(lambda: khist.block_histograms(part, part_lens)),
         batch_one_value_ms=chain_ms(lambda: khist.block_histograms(part_one, part_lens)),
@@ -1244,8 +1251,9 @@ def histogram_phase(data: bytes, dev, card: str) -> dict:
             lambda: khist.block_histograms(part_period, part_lens)),
     )
     log(f"kernel histogram: 64 MiB of text, of one byte value and of a 16-byte record equal "
-        f"the plain version and numpy's counts, and so do their first {batch} blocks ({slices} "
-        f"slices a row) (max_abs_err {entry['max_abs_err']}); kernel {entry['ms']:.4f} ms "
+        f"the plain version and numpy's counts, and so do their first {batch} blocks (slices "
+        f"a row: {slices}) and {small} blocks (slices a row: {small_slices}) (max_abs_err "
+        f"{entry['max_abs_err']}); kernel {entry['ms']:.4f} ms "
         f"(device {entry['device_ms']:.4f} ms), one value {entry['one_value_ms']:.4f} ms, "
         f"period 16 {entry['period16_ms']:.4f} ms (device {entry['period16_device_ms']:.4f} "
         f"ms); plain (index_add_) {entry['plain_ms']:.4f} ms, one value "

@@ -27,19 +27,21 @@
 //     shift and `lop3` per word and a funnel shift per byte;
 //   * a CTA is two warps (16 KiB of counters); each round a thread
 //     counts up to sixteen 16-byte vectors (a warp reads 512 contiguous
-//     bytes a load, four loads in flight), so a counter takes at most 255
-//     of its 256 bytes: the round's 256th byte of a thread, and the bytes
-//     before the first and after the last whole vector (any row base,
-//     stride and S), go to a shared 32-bit bin;
+//     bytes a load), so a counter takes at most 255 of its 256 bytes: the
+//     round's 256th byte of a thread, and the bytes before the first and
+//     after the last whole vector (any row base, stride and S), go to a
+//     shared 32-bit bin.  More loads in flight (2 or 4 a thread) ran no
+//     faster: the shared atomics bind, about one warp-wide `ATOMS` every
+//     4 cycles an SM (PERF.md, PR 16);
 //   * after a round the counters are flushed: thread t sums the 64
 //     counter words of values 4t..4t+3 (16 conflict-free 16-byte loads,
 //     the bytes added in 16-bit pairs) into four 32-bit sums it keeps in
 //     registers, and zeroes them;
-//   * a row is cut into `parts` (1, 2, 4 or 8) so that a small batch
-//     still fills the card: the parts of a row are one thread-block
-//     cluster, and its first CTA adds the others' sums through
-//     distributed shared memory and writes the row's int64 counts, with
-//     no memset and no global atomic.
+//   * a batch of fewer rows than SMs has each row cut into `parts` (2, 4
+//     or 8): the parts of a row are one thread-block cluster, and its
+//     first CTA adds the others' sums through distributed shared memory
+//     and writes the row's int64 counts, with no memset and no global
+//     atomic.
 // No host read and no allocation: the launch goes on the caller's stream.
 
 #include <cooperative_groups.h>
@@ -55,8 +57,7 @@ constexpr int kVecs = 16;                       // 16-byte vectors a thread coun
 constexpr int64_t kRoundVecs = kThreads * kVecs;  // 16 KiB a round
 constexpr int kCounterBytes = 256 * kThreads;   // 16 KiB of 8-bit counters
 constexpr int kMaxParts = 8;                    // portable cluster size
-constexpr int kAhead = 4;                       // loads in flight a thread
-constexpr int kCtasPerSm = 10;                  // 17 KiB of shared memory a CTA
+constexpr int kCtasPerSm = 12;                  // 17 KiB of shared memory a CTA
 
 __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
   uint32_t d;
@@ -79,25 +80,16 @@ __device__ __forceinline__ void count_word(uint8_t* counters, uint32_t w, uint32
   add(0xFF70u, sh >> 24);
 }
 
-template <bool kFull>
-__device__ __forceinline__ uint4 fetch(const uint4* __restrict__ vec, int64_t i, int64_t nvec) {
-  return kFull || i < nvec ? __ldg(vec + i) : make_uint4(0, 0, 0, 0);
-}
-
 // One round: vectors first + k * kThreads + tid, k < kVecs, below nvec.
 template <bool kFull>
 __device__ __forceinline__ void count_round(const uint4* __restrict__ vec, int64_t first,
                                             int64_t nvec, uint8_t* counters, uint32_t* extra,
                                             uint32_t t4, int tid) {
-  uint4 ring[kAhead];
-#pragma unroll
-  for (int k = 0; k < kAhead; ++k) ring[k] = fetch<kFull>(vec, first + k * kThreads + tid, nvec);
 #pragma unroll
   for (int k = 0; k < kVecs; ++k) {
-    const uint4 a = ring[k % kAhead];
-    if (k + kAhead < kVecs)
-      ring[k % kAhead] = fetch<kFull>(vec, first + (k + kAhead) * kThreads + tid, nvec);
-    if (kFull || first + k * kThreads + tid < nvec) {
+    const int64_t i = first + k * kThreads + tid;
+    if (kFull || i < nvec) {
+      const uint4 a = __ldg(vec + i);
       if (k == kVecs - 1) {  // the thread's 256th byte of the round
         atomicAdd(&extra[a.x & 0xffu], 1u);
         count_word<1>(counters, a.x, t4);

@@ -27,7 +27,6 @@ import torch
 
 from data_compression_tpu_torch.ops.kernels import _build
 
-CTAS_PER_SM = 3  # a batch is cut until it has this many CTAs an SM (fewer ran slower, PERF.md)
 MIN_SLICE = 16384  # bytes: a CTA's round (64 threads x 256 bytes); no slice is cut shorter
 MAX_SLICES = 8  # a row's slices are one thread-block cluster (the portable size)
 
@@ -56,10 +55,11 @@ def block_histograms_ref(blocks: torch.Tensor, lengths: torch.Tensor) -> torch.T
 
 def slices_for(B: int, S: int, sms: int) -> int:
     """Slices (CTAs of one cluster) per row, 1, 2, 4 or 8: doubled while
-    the B rows give fewer than CTAS_PER_SM CTAs to each of ``sms`` SMs
-    and each slice keeps at least MIN_SLICE bytes."""
+    the B rows give fewer CTAs than ``sms`` SMs and each slice keeps at
+    least MIN_SLICE bytes (the streamed batch of 256 rows ran faster
+    uncut than in 2 or 4 slices a row, PERF.md)."""
     slices = 1
-    while slices < MAX_SLICES and B * slices < CTAS_PER_SM * sms and S >= 2 * slices * MIN_SLICE:
+    while slices < MAX_SLICES and B * slices < sms and S >= 2 * slices * MIN_SLICE:
         slices *= 2
     return slices
 

@@ -118,13 +118,13 @@ def _bincounts(blocks, lengths):
                      for i in range(len(lengths))])
 
 
-@pytest.mark.parametrize("B,S,want", [(1024, 65536, 1), (DEFAULT_BATCH_BLOCKS, 65536, 2),
+@pytest.mark.parametrize("B,S,want", [(1024, 65536, 1), (DEFAULT_BATCH_BLOCKS, 65536, 1),
                                       (1, 65536, 4), (1, 1 << 20, 8), (7, 65536, 4),
-                                      (1, 4104, 1), (2000, 65536, 1), (1, 32767, 1)])
+                                      (100, 65536, 2), (1, 4104, 1), (1, 32767, 1)])
 def test_slices_for_fills_the_card(B, S, want):
     """The main path's 64 MiB (1,024 rows), the streamed batch (256
-    rows) and one row: slices double while the CTAs are fewer than 3 an
-    SM and each keeps a 16 KiB round."""
+    rows) and one row: slices double while the CTAs are fewer than the
+    SMs and each keeps a 16 KiB round."""
     got = khist.slices_for(B, S, H100_SMS)
     assert got == want
     assert got in (1, 2, 4, 8) and (got == 1 or S >= got * khist.MIN_SLICE)
