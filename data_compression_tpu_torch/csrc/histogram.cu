@@ -19,7 +19,7 @@
 //     1 << 8 (v & 3) into the word), so no byte waits for the one
 //     before it: a load, add and store of the counter ran 1.66x slower,
 //     each byte's load issued after the store before it (they may
-//     alias) and its add waiting out the load's latency (PERF.md, PR 16);
+//     alias) and its add waiting out the load's latency (PERF.md);
 //   * the word's address is one `prmt` per byte: per 4-byte word one
 //     shift and `lop3` put v >> 2 in each byte, and the permute takes
 //     t << 2 for the low byte, byte j for the next and its sign (always
@@ -32,7 +32,7 @@
 //     after the last whole vector (any row base, stride and S), go to a
 //     shared 32-bit bin.  More loads in flight (2 or 4 a thread) ran no
 //     faster: the shared atomics bind, about one warp-wide `ATOMS` every
-//     4 cycles an SM (PERF.md, PR 16);
+//     4 cycles an SM as inferred from the readings (PERF.md);
 //   * after a round the counters are flushed: thread t sums the 64
 //     counter words of values 4t..4t+3 (16 conflict-free 16-byte loads,
 //     the bytes added in 16-bit pairs) into four 32-bit sums it keeps in
