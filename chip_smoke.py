@@ -43,7 +43,17 @@ script exits non-zero without a result line):
      shared tables, must give ``compress``'s frame on ``cuda`` and
      ``decompress_sharded`` must round-trip, with the launch count of
      each of its kernels > 0; then its GB/s, and the time of its
-     collectives; the group is destroyed;
+     collectives; then the scaling harness's step,
+     ``multihost.measure_encode_throughput`` on 64 MiB at the main path's
+     geometry (its launches of the rows encode kernel > 0, counted into
+     that kernel's entry at n = 2), whose gathered per-chunk wire bytes
+     must equal the plain rows encode's on the same blocks and table,
+     with its bytes/s, compute and collective seconds; the group is
+     destroyed; then in child processes ``parallel.dryrun`` at one NCCL
+     rank (every round trip exact) and ``tools.scaling_bench 1 64
+     --device cuda``, whose reports are printed, and both at 2 ranks on
+     ``cuda:0-1`` where the machine has a second card (otherwise a line
+     says that run needs one; nothing runs in its place);
   6. wire parity: the frames of the golden inputs (Huffman at n = 2, 16
      and 3, and the serial codecs) must hash to the SHA-256 recorded from
      the JAX package, and decode back;
@@ -995,7 +1005,8 @@ def sharded_phase(data: bytes, blobs: dict, card: str, count_launches) -> dict:
     import torch.distributed as dist
 
     from data_compression_tpu_torch import CodecConfig, compress
-    from data_compression_tpu_torch.config import max_chunk_bytes
+    from data_compression_tpu_torch.config import max_chunk_bytes, wire_bytes
+    from data_compression_tpu_torch.ops.kernels import encode
     from data_compression_tpu_torch.parallel import (
         compress_sharded, decompress_sharded, make_mesh, multihost,
     )
@@ -1060,9 +1071,53 @@ def sharded_phase(data: bytes, blobs: dict, card: str, count_launches) -> dict:
         }
         log("sharded collectives (1 NCCL rank, ms per call, CUDA events): "
             + ", ".join(f"{k} {v:.4f}" for k, v in coll.items()) + f"; card {card}")
+
+        # the scaling harness's step at the main path's geometry (n = 2)
+        report, counts = count_launches(
+            ("huffman_encode_rows",),
+            lambda: multihost.measure_encode_throughput(cfg, len(data), device=dev))
+        blocks, lens, dense = multihost.encode_share(cfg, len(data), mesh)
+        gathered = multihost.encode_counts(blocks, lens, dense, cfg, mesh)
+        _, digits = encode.encode_chunk_rows_ref(blocks, lens, dense, cfg.chunk_syms, cfg.arity)
+        if not torch.equal(gathered, wire_bytes(digits, cfg.arity)):
+            raise AssertionError("measure_encode_throughput's counts differ from the plain "
+                                 "rows encode's")
+        totals[2]["huffman_encode_rows"] += counts["huffman_encode_rows"]
+        log(f"measure_encode_throughput (1 NCCL rank, {len(data) // MIB} MiB, "
+            f"{cfg.block_size // 1024} KiB blocks of {ncb} x {cfg.chunk_syms}): gathered counts == "
+            f"plain rows encode's, launches {counts}; bytes_per_s {report['bytes_per_s']:.1f}, "
+            f"best_s {report['best_s']:.6f}, compute_s {report['compute_s']:.6f}, "
+            f"collective_s {report['collective_s']:.6f}; card {card}")
         return totals
     finally:
         dist.destroy_process_group()
+
+
+def multiproc_phase(card: str) -> None:
+    """The dry run and the scaling tool on cuda in child processes: one
+    rank, and two where the machine has a second card."""
+    import torch
+
+    from data_compression_tpu_torch.parallel import dryrun
+
+    ranks = (1, 2) if torch.cuda.device_count() >= 2 else (1,)
+    for n in ranks:
+        report = dryrun.dryrun_multichip(n, "cuda", timeout=300)
+        log(f"dryrun_multichip ({n} NCCL rank{'s' if n > 1 else ''}): {json.dumps(report)}")
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp) / "scaling.json"
+            r = subprocess.run([sys.executable, "-m", "data_compression_tpu_torch.tools.scaling_bench",
+                                str(n), str(MAIN_BYTES // MIB), "--device", "cuda", "--out", str(out),
+                                "--timeout", "240"],
+                               cwd=ROOT, capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"scaling_bench {n}: exit {r.returncode}\n{r.stderr[-3000:]}")
+            report = json.loads(out.read_text())
+            log(f"scaling_bench {n} {MAIN_BYTES // MIB} --device cuda: {json.dumps(report)}; "
+                f"card {card}")
+    if ranks == (1,):
+        log(f"dryrun_multichip and scaling_bench at 2 NCCL ranks: not run, they need a second "
+            f"card (this machine has {torch.cuda.device_count()})")
 
 
 def run_cli(args, label: str) -> dict:
@@ -1511,6 +1566,7 @@ def main() -> int:
 
     # -- 5. the sharded pipeline in a one-rank NCCL group
     sharded_launches = sharded_phase(data, blobs, card, count_launches)
+    multiproc_phase(card)
 
     # -- 6. wire parity with the JAX package's recorded hashes
     golden = json.loads((ROOT / "tests" / "data" / "torch_golden.json").read_text())

@@ -6,4 +6,5 @@ from data_compression_tpu_torch.huffman.canonical import (
     CanonicalTable,
     lengths_to_codes,
     build_decode_tables,
+    expected_payload_digits,
 )

@@ -165,3 +165,9 @@ def build_decode_tables(table: CanonicalTable, pad_to: int = MAX_CODE_LEN):
         "min_len": np.int32(max(table.min_len, 1)),
     }
 
+
+
+def expected_payload_digits(freqs: np.ndarray, lengths: np.ndarray) -> int:
+    """Sum of freq*length — the reference's ``find_compressed_data_size``
+    payload estimate (n_ary_huffman.c:2466-2506)."""
+    return int((np.asarray(freqs, np.int64) * np.asarray(lengths, np.int64)).sum())

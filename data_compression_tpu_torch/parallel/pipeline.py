@@ -85,6 +85,14 @@ def _pad_blocks(blocks: np.ndarray, lengths: np.ndarray, multiple: int):
     return pb, pl
 
 
+def require_fast_arity(arity: int) -> None:
+    """KeyError for an arity with no sharded encode, as the JAX package's
+    sharded encode raises looking up its bit-field width."""
+    if arity not in FAST_ARITIES:
+        raise KeyError(f"no sharded encode for huffman arity {arity}: it has no "
+                       f"bit-field wire packing (arities {FAST_ARITIES} do)")
+
+
 def _table_lengths(mesh: Mesh, config: CodecConfig, dev_blocks, dev_lens) -> np.ndarray:
     """Code lengths of every block's table, [B, 256] int32, the same on
     every rank: from the all-gathered per-block histograms, or in shared
@@ -118,9 +126,7 @@ def compress_sharded(data: BytesLike, config: CodecConfig,
     if B_real == 0:
         # as the JAX package's sharded frame: no chunk size in the header
         return framing.pack_frame(config.codec_id, config.arity, S, 0, [], [], [], [])
-    if config.arity not in FAST_ARITIES:
-        raise KeyError(f"no sharded encode for huffman arity {config.arity}: it has no "
-                       f"bit-field wire packing (arities {FAST_ARITIES} do)")
+    require_fast_arity(config.arity)
     blocks, lengths = _pad_blocks(blocks, lengths, mesh.world_size)
     per = blocks.shape[0] // mesh.world_size
     lo = mesh.rank * per

@@ -1,12 +1,22 @@
-"""Seeded synthetic corpora whose bytes do not depend on library versions.
+"""Seeded synthetic corpora.
 
-Only integer arithmetic on ``np.random.PCG64(seed).random_raw`` is used
-(numpy keeps a bit generator's raw stream fixed across versions), so the
-same seed gives the same bytes everywhere: the golden wire hashes in
-``tests/data/torch_golden.json`` rest on that.
+The generators down to ``GENERATORS`` use only integer arithmetic on
+``np.random.PCG64(seed).random_raw`` (numpy keeps a bit generator's raw
+stream fixed across versions), so the same seed gives the same bytes
+everywhere: the golden wire hashes in ``tests/data/torch_golden.json``
+rest on that.
+
+The benchmark corpora after them are copies of the JAX package's
+``utils/corpora.py``: the same ``np.random.default_rng`` calls, so the
+same bytes as the JAX package's on the same numpy, but not across numpy
+versions.  ``parallel.multihost.measure_encode_throughput`` reads
+``synthetic_enwik``.
 """
 
 from __future__ import annotations
+
+import os
+from typing import Optional
 
 import numpy as np
 
@@ -199,3 +209,87 @@ GENERATORS = {
     "printable_like": printable_like,
     "deep_code_block": deep_code_block,
 }
+
+
+# ----------------------------------------------------------------------
+# Benchmark corpora (copies of the JAX package's ``utils/corpora.py``)
+# ----------------------------------------------------------------------
+
+# Well-known local paths probed before synthesizing: the JAX package's,
+# less its absolute spelling of the superuser's home directory
+# (``~/corpora`` covers it there).
+_SEARCH = ["/data", "/corpora", os.path.expanduser("~/corpora")]
+
+
+def load_or_synthesize(name: str, nbytes: Optional[int] = None, seed: int = 0) -> bytes:
+    """enwik6/enwik8/alice29.txt if present on disk, else synthetic."""
+    for d in _SEARCH:
+        p = os.path.join(d, name)
+        if os.path.exists(p):
+            with open(p, "rb") as f:
+                data = f.read()
+            return data[:nbytes] if nbytes else data
+    sizes = {"enwik6": 10**6, "enwik8": 10**8, "alice29.txt": 152089}
+    n = nbytes or sizes.get(name, 10**6)
+    if name.startswith("enwik"):
+        return synthetic_enwik(n, seed)
+    return synthetic_english(n, seed)
+
+
+def synthetic_enwik(nbytes: int, seed: int = 0) -> bytes:
+    """enwik8-like: English text + wiki markup, ~4.2 bits/byte order-0
+    entropy, zipf-weighted alphabet."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, ENWIK_ALPHABET.size + 1, dtype=np.float64)
+    probs = 1.0 / ranks**1.1
+    probs /= probs.sum()
+    return rng.choice(ENWIK_ALPHABET, size=nbytes, p=probs).tobytes()
+
+
+def synthetic_english(nbytes: int, seed: int = 0) -> bytes:
+    """Word-structured English-like text (repeating word pool, so LZW
+    codecs have real matches to find, unlike iid letters)."""
+    rng = np.random.default_rng(seed)
+    pool = (
+        "the of and to in is was he that it his her you as had with for on at by "
+        "but be this all from they which one said have will were me we when what "
+        "would there been their time who more like into them could than other"
+    ).split()
+    words = rng.choice(np.asarray(pool, dtype=object), size=max(4, nbytes // 4))
+    text = (" ".join(words)).encode()
+    reps = -(-nbytes // len(text))
+    return (text * reps)[:nbytes]
+
+
+def repo_source_corpus(nbytes: Optional[int] = None) -> bytes:
+    """Real, checked-in corpus: this repository's own source text (the
+    port's package, ``tests/`` and ``tools/``) — the reference Makefile's
+    trick of benchmarking on its own source (TEST_FILE_IN :=
+    n_ary_huffman.c, Makefile:15), scaled up.  Deterministic: files
+    concatenated in sorted path order, repeated to ``nbytes`` when
+    requested."""
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(pkg)
+    parts = []
+    for base in (pkg, os.path.join(root, "tests"), os.path.join(root, "tools")):
+        for dirpath, dirnames, filenames in sorted(os.walk(base)):
+            dirnames.sort()
+            for fn in sorted(filenames):
+                if fn.endswith((".py", ".c", ".md")):
+                    with open(os.path.join(dirpath, fn), "rb") as f:
+                        parts.append(f.read())
+    data = b"\n".join(parts)
+    if not nbytes:
+        return data
+    reps = -(-nbytes // max(1, len(data)))
+    return (data * reps)[:nbytes]
+
+
+def mixed_corpus(nbytes: int, seed: int = 0) -> bytes:
+    """Text+binary mix (the multi-host config in BASELINE.json)."""
+    rng = np.random.default_rng(seed)
+    third = nbytes // 3
+    a = synthetic_enwik(third, seed)
+    b = synthetic_english(third, seed + 1)
+    c = rng.integers(0, 256, size=nbytes - 2 * third, dtype=np.uint8).tobytes()
+    return a + b + c

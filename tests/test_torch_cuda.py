@@ -330,6 +330,43 @@ def test_sharded_one_rank_nccl_matches_compress(cuda, tmp_path):
         torch.distributed.destroy_process_group()
 
 
+def test_measure_encode_throughput_one_rank_nccl(cuda, tmp_path):
+    """The scaling harness's step on the card: JAX's keys, and the
+    gathered counts equal the plain rows encode's wire bytes."""
+    cfg = pt.CodecConfig()
+    nbytes = 8 * 65536 + 1000
+    multihost.initialize("nccl", f"file://{tmp_path}/store", 1, 0, device=cuda)
+    try:
+        mesh = make_mesh(cuda)
+        kenc.encode_chunk_rows.launches = 0
+        r = multihost.measure_encode_throughput(cfg, nbytes, iters=2, device=cuda)
+        assert kenc.encode_chunk_rows.launches == 6  # two warm-ups, two steps a trial
+        assert (r["bytes"], r["processes"], r["devices"]) == (nbytes, 1, 1)
+        assert r["bytes_per_s"] > 0 and r["collective_s"] >= 0
+        blocks, lens, dense = multihost.encode_share(cfg, nbytes, mesh)
+        counts = multihost.encode_counts(blocks, lens, dense, cfg, mesh)
+        _, digits = kenc.encode_chunk_rows_ref(blocks, lens, dense, cfg.chunk_syms, cfg.arity)
+        assert torch.equal(counts, wire_bytes(digits, cfg.arity))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_dryrun_multichip_one_nccl_rank(cuda):
+    from data_compression_tpu_torch.parallel import dryrun
+
+    report = dryrun.dryrun_multichip(1, "cuda", timeout=300)
+    assert report["mesh"] == {"data": 1, "chunk": 1} and report["jax_modules"] == []
+    assert set(report["frames"]) == set(dryrun.ROUND_TRIPS)
+
+
+def test_scaling_bench_more_ranks_than_cards_raises(cuda):
+    from data_compression_tpu_torch.tools import scaling_bench
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match=f"{n} NCCL ranks need {n} CUDA devices"):
+        scaling_bench.run(n, 1, "cuda")
+
+
 def _outcome(stream, device):
     try:
         return pt.decompress(stream, device=device)

@@ -2,7 +2,9 @@
 JAX package's ``compress_sharded`` on the conftest's 8-device CPU mesh:
 the Pallas route (interpret mode) at 16 KiB / 128 and the XLA route at
 8 KiB / 1024, per-block and shared tables, a world of 1 in this process
-and a world of 2 in two spawned processes that import only the port.
+and a world of 2 in two spawned processes that import only the port
+(there also the multihost entry point's frames of empty input against
+JAX ``compress_multihost_bytes``).
 
 Tolerance: exact — frames and decoded outputs are compared as bytes.
 """
@@ -20,6 +22,7 @@ import torch.distributed as dist
 import data_compression_tpu as jx
 from data_compression_tpu.models import huffman as jhuff
 from data_compression_tpu.parallel import mesh as jmesh
+from data_compression_tpu.parallel import multihost as jmultihost
 from data_compression_tpu.parallel import pipeline as jpipe
 
 import data_compression_tpu_torch as pt
@@ -240,6 +243,15 @@ for name, kw in configs.items():
     res["frames"][f"{name} multihost"] = hashlib.sha256(frame).hexdigest()
     res["roundtrip"][f"{name} multihost"] = (
         multihost.decompress_multihost_bytes(frame, None, device="cpu") == data)
+res["empty"] = {}
+for n in (2, 3, 16, 5):
+    for shared in (False, True):
+        try:
+            frame = multihost.compress_multihost_bytes(
+                b"", CodecConfig(arity=n, shared_table=shared), device="cpu")
+            res["empty"][f"{n} {shared}"] = hashlib.sha256(frame).hexdigest()
+        except KeyError:
+            res["empty"][f"{n} {shared}"] = "KeyError"
 res["block_ids"] = multihost.process_local_block_ids(5).tolist()
 res["jax_imported"] = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 import torch.distributed as dist
@@ -284,6 +296,23 @@ def test_two_ranks_frames_equal_jax_sharded(two_ranks, jax_frames, name):
     for res in two_ranks:
         got = {k: v for k, v in res["frames"].items() if k.startswith(name + " ")}
         assert len(got) == 3 and set(got.values()) == {want}, got
+
+
+def test_two_ranks_empty_input_frames_equal_jax_multihost(two_ranks):
+    """Empty input through the multihost entry point at world 2: JAX
+    ``compress_multihost_bytes``'s frame (the chunk size in the header, a
+    shared table of an all-zero histogram), KeyError at n = 5."""
+    want = {}
+    for n in (2, 3, 16, 5):
+        for shared in (False, True):
+            try:
+                want[f"{n} {shared}"] = _sha(jmultihost.compress_multihost_bytes(
+                    b"", jx.CodecConfig(arity=n, shared_table=shared)))
+            except KeyError:
+                want[f"{n} {shared}"] = "KeyError"
+    assert [want[f"5 {s}"] for s in (False, True)] == ["KeyError"] * 2
+    for res in two_ranks:
+        assert res["empty"] == want
 
 
 def test_two_ranks_round_trip(two_ranks):
