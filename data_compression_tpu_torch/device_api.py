@@ -16,7 +16,8 @@ whether the output fitted its capacity.
 rows (``ops/kernels/table_build.py`` ``decode_tables``, one launch) and
 runs the decode kernel, with no host read either: as the JAX function,
 it does not check its offsets, and the decode kernel clamps every chunk
-into ``flat`` itself.
+into ``flat`` itself.  Both entry points record the host time of their
+stages in the call recorder (``utils/tracing.py``, ``STAGES``).
 
 Per-block tables at n = 2, 3 and 16 only (the arities with kernels):
 shared tables raise ValueError, other arities KeyError, as the JAX
@@ -43,6 +44,7 @@ from data_compression_tpu_torch.ops.kernels import decode as kdecode
 from data_compression_tpu_torch.ops.kernels import encode as kencode
 from data_compression_tpu_torch.ops.kernels.histogram import block_histograms
 from data_compression_tpu_torch.ops.kernels.table_build import build_tables, decode_tables
+from data_compression_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -117,6 +119,16 @@ def compress_blocks_device(
     the compaction writes the first ``out_cap`` payload bytes (default
     B * S) into ``flat`` and zeros past the payload's end, and
     ``download`` compacts again if the payload was longer."""
+    with tracing.call("device_api.compress") as rec:
+        out = _compress(rec, blocks, raw_lens, config, out_cap, device)
+    return out
+
+
+def _compress(rec, blocks, raw_lens, config, out_cap, device) -> DeviceCompressed:
+    """``compress_blocks_device``'s stages, each but the last ended on
+    ``rec``.  A function of its own, so that its temporaries are freed at
+    its return, inside the call's last stage: the frees are host time of
+    the call."""
     config = config or CodecConfig()
     if config.codec != "huffman" or config.shared_table:
         raise ValueError("the device pipeline runs the huffman codec with per-block tables")
@@ -131,10 +143,18 @@ def compress_blocks_device(
     cap = B * S if out_cap is None else out_cap
     if cap < 0:
         raise ValueError(f"out_cap must be >= 0, got {cap}")
-    lengths, dense = build_tables(block_histograms(blocks, lens), arity)
+    rec.next_stage()
+    hist = block_histograms(blocks, lens)
+    rec.next_stage()
+    lengths, dense = build_tables(hist, arity)
+    del hist  # not held through the encode's and the compaction's allocations
+    rec.next_stage()
     rows, digits, block_bytes = kencode.encode_blocks(blocks, lens, dense, C, arity)
+    rec.next_stage()
+    flat = _compact_into(rows, block_bytes, cap)
+    rec.next_stage()
     return DeviceCompressed(
-        flat=_compact_into(rows, block_bytes, cap), nb=wire_bytes(digits, arity),
+        flat=flat, nb=wire_bytes(digits, arity),
         total=block_bytes.sum(dtype=torch.int64), table_rows=lengths.to(torch.uint8),
         raw_lens=lens, arity=arity, chunk_syms=C, rows=rows, block_bytes=block_bytes,
     )
@@ -179,10 +199,24 @@ def decode_blocks_device(flat, chunk_off, chunk_cnt, chunk_blk, table_rows, arit
     undefined.  Two launches and no host read: the offsets are not
     checked (``decode_chunks`` checks them), a chunk past ``flat`` decodes
     from its bytes inside it."""
+    with tracing.call("device_api.decompress") as rec:
+        out = _decode(rec, flat, chunk_off, chunk_cnt, chunk_blk, table_rows, arity, chunk_syms,
+                      device)
+    return out
+
+
+def _decode(rec, flat, chunk_off, chunk_cnt, chunk_blk, table_rows, arity, chunk_syms,
+            device) -> torch.Tensor:
+    """``decode_blocks_device``'s stages, as ``_compress`` holds
+    ``compress_blocks_device``'s."""
     device = torch.device(device)
     for t in (flat, chunk_off, chunk_cnt, chunk_blk, table_rows):
         if not _on(t, device):
             raise ValueError(f"decode inputs must lie on {device}, got {t.device}")
+    rec.next_stage()
     limit, bmf, symbols = decode_tables(table_rows, arity)
-    return kdecode.decode_launcher(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
-                                   chunk_syms, arity, check=False)()
+    rec.next_stage()
+    launch = kdecode.decode_launcher(flat, chunk_off, chunk_cnt, chunk_blk, limit, bmf, symbols,
+                                     chunk_syms, arity, check=False)
+    rec.next_stage()
+    return launch()

@@ -82,6 +82,7 @@ def test_import_hygiene():
         "import data_compression_tpu_torch.models.nybble\n"
         "import data_compression_tpu_torch.models.small\n"
         "import data_compression_tpu_torch.utils.debug\n"
+        "import data_compression_tpu_torch.utils.tracing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'data_compression_tpu' or m.startswith('data_compression_tpu.')]\n"
         "assert not bad, bad\n"
