@@ -12,7 +12,8 @@ script exits non-zero without a result line):
   2. build the CUDA kernels from ``data_compression_tpu_torch/csrc``,
      and print ``nvcc -Xptxas -v``'s registers, stack and spill bytes of
      the encode, compaction, histogram, table-build, decode-table,
-     lookup and serial-lane kernels (``_build.ptxas_usage``), requiring
+     lookup, serial-lane and compress-finishing kernels
+     (``_build.ptxas_usage``), requiring
      0 stack and 0 spill; build the native C runtime
      (``data_compression_tpu_torch/native/libdctpu.c``, by ``cc``) and
      print its build seconds and whether it runs with OpenMP;
@@ -1331,6 +1332,7 @@ def device_phase(data: bytes, blobs: dict, dev, card: str, count_launches) -> tu
     from data_compression_tpu_torch import CodecConfig, device_api, framing
     from data_compression_tpu_torch.huffman import batched as hb
     from data_compression_tpu_torch.ops import table_build as tbd
+    from data_compression_tpu_torch.ops.kernels import compact as kcompact
     from data_compression_tpu_torch.ops.kernels import decode as kdecode
     from data_compression_tpu_torch.ops.kernels import encode as kencode
     from data_compression_tpu_torch.ops.kernels import table_build as ktb
@@ -1412,7 +1414,7 @@ def device_phase(data: bytes, blobs: dict, dev, card: str, count_launches) -> tu
             "encode kernel": chain_ms(lambda: kencode.encode_blocks(dev_blocks, dev_lens, dense_k,
                                                                     C, n)),
             "compaction kernel, out_cap B*S": chain_ms(
-                lambda: device_api._compact_into(rows, bb, dev_blocks.numel())),
+                lambda: kcompact.compact_blocks(rows, bb, total=dev_blocks.numel())),
             "decode tables kernel": dt_entries[n]["ms"],
             "decode tables (torch ops, plain)": dt_entries[n]["plain_ms"],
             "decode kernel": chain_ms(kdecode.decode_launcher(*inputs, lim, bmf, syms, C, n,
@@ -1492,7 +1494,8 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.3f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
     for source in ("huffman_encode.cu", "compact.cu", "histogram.cu", "table_build.cu",
-                   "decode_tables.cu", "microbench.cu", "nybble_lanes.cu", "small_lanes.cu"):
+                   "decode_tables.cu", "microbench.cu", "nybble_lanes.cu", "small_lanes.cu",
+                   "compress_chain.cu"):
         usage = _build.ptxas_usage(source)
         for fn, u in sorted(usage.items()):
             log(f"ptxas {source} {fn}: {u}")

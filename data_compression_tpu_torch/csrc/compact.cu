@@ -26,6 +26,13 @@
 // byte by a 32-way warp search of ends; each word moves forward from
 // there by a galloping search, one L1 read on the main path.
 //
+// flat may be longer than the payload (the device pipeline hands the
+// kernel its whole capacity, and zeros past the payload are its
+// contract): a word wholly at or past the payload's end, ends[B-1], is
+// stored as a uint4 of zeros with no search, so the tail costs its stores
+// alone; only the one word that straddles the end gathers its bytes.  A
+// caller that passes the exact total has no such word.
+//
 // Nothing is read outside an aligned 16-byte word that holds a byte of a
 // block's valid row range, and nothing is written outside flat[0, total).
 // Counts outside [0, row_cap] are clamped (the wrapper rejects them first
@@ -33,6 +40,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -113,6 +122,7 @@ compact_kernel(const uint8_t* __restrict__ rows, const int64_t* __restrict__ end
   uint4* out = reinterpret_cast<uint4*>(flat - head);
   const int64_t nwords = (total + head + 15) >> 4;
   const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kTileWords;
+  const int64_t payload_end = B ? __ldg(ends + B - 1) : 0;  // zeros from here on
   if (threadIdx.x < 32) {
     const int b = warp_upper_bound(ends, 0, B, max(16 * w0 - head, static_cast<int64_t>(0)));
     if (threadIdx.x == 0) first_block = b;
@@ -134,6 +144,10 @@ compact_kernel(const uint8_t* __restrict__ rows, const int64_t* __restrict__ end
     shift[u] = 0;
     lo[u] = hi[u] = make_uint4(0u, 0u, 0u, 0u);
     if (q < 0 || q + 16 > total) continue;
+    if (q >= payload_end) {  // past the payload: zeros
+      whole[u] = true;
+      continue;
+    }
     if (q < start || q + 16 > lim) {  // not inside the last word's block
       b = seek(ends, b, B, q);
       if (b < B) {
@@ -170,7 +184,7 @@ compact_kernel(const uint8_t* __restrict__ rows, const int64_t* __restrict__ end
       const int64_t p = q + j;
       uint32_t byte = 0;
       if (p >= 0 && p < total) {
-        bb = seek(ends, bb, B, p);
+        bb = p < payload_end ? seek(ends, bb, B, p) : B;
         if (bb < B) {
           int64_t first, end;
           block_span(ends, bb, row_cap, first, end);
@@ -191,16 +205,20 @@ compact_kernel(const uint8_t* __restrict__ rows, const int64_t* __restrict__ end
 
 }  // namespace
 
+cudaError_t dct::launch_compact(const void* rows, const void* ends, void* flat, int B,
+                                int64_t row_cap, int64_t total, cudaStream_t stream,
+                                bool* launched) {
+  if (total <= 0) return cudaGetLastError();
+  const int64_t head = static_cast<int64_t>(reinterpret_cast<uintptr_t>(flat) & 15u);
+  const int64_t tiles = ((total + head + 15) / 16 + kTileWords - 1) / kTileWords;
+  compact_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, stream>>>(
+      static_cast<const uint8_t*>(rows), static_cast<const int64_t*>(ends),
+      static_cast<uint8_t*>(flat), B, row_cap, total);
+  return dct::launched_if(cudaGetLastError(), launched);
+}
+
 extern "C" int dct_compact(const void* rows, const void* ends, void* flat, int B,
                            long long row_cap, long long total, void* stream) {
-  if (B > 0 && total > 0) {
-    const long long head = static_cast<long long>(reinterpret_cast<uintptr_t>(flat) & 15u);
-    const long long tiles = ((total + head + 15) / 16 + kTileWords - 1) / kTileWords;
-    compact_kernel<<<static_cast<unsigned>(tiles), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(rows), static_cast<const int64_t*>(ends),
-        static_cast<uint8_t*>(flat), B, static_cast<int64_t>(row_cap),
-        static_cast<int64_t>(total));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(dct::launch_compact(rows, ends, flat, B, row_cap, total,
+                                              static_cast<cudaStream_t>(stream)));
 }

@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -196,10 +198,11 @@ histogram_kernel(const uint8_t* __restrict__ blocks, int64_t row_stride,
 
 }  // namespace
 
-extern "C" int dct_histogram(const void* blocks, long long row_stride, const void* lengths,
-                             void* out, int B, long long S, int parts, void* stream) {
-  if (B <= 0) return static_cast<int>(cudaGetLastError());
-  if (parts < 1 || parts > kMaxParts) return static_cast<int>(cudaErrorInvalidValue);
+cudaError_t dct::launch_histogram(const void* blocks, int64_t row_stride, const void* lengths,
+                                  void* out, int B, int64_t S, int parts, cudaStream_t stream,
+                                  bool* launched) {
+  if (B <= 0) return cudaGetLastError();
+  if (parts < 1 || parts > kMaxParts) return cudaErrorInvalidValue;
   const int64_t span = ((S + parts - 1) / parts + 15) & ~int64_t{15};
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
@@ -209,13 +212,18 @@ extern "C" int dct_histogram(const void* blocks, long long row_stride, const voi
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(B) * static_cast<unsigned>(parts));
   cfg.blockDim = dim3(kThreads);
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.stream = stream;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, histogram_kernel, static_cast<const uint8_t*>(blocks), static_cast<int64_t>(row_stride),
-      static_cast<const int32_t*>(lengths), static_cast<unsigned long long*>(out),
-      static_cast<int64_t>(S), parts, span);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+      &cfg, histogram_kernel, static_cast<const uint8_t*>(blocks), row_stride,
+      static_cast<const int32_t*>(lengths), static_cast<unsigned long long*>(out), S, parts, span);
+  if (e != cudaSuccess) return e;
+  return dct::launched_if(cudaGetLastError(), launched);
+}
+
+extern "C" int dct_histogram(const void* blocks, long long row_stride, const void* lengths,
+                             void* out, int B, long long S, int parts, void* stream) {
+  return static_cast<int>(dct::launch_histogram(blocks, row_stride, lengths, out, B, S, parts,
+                                                static_cast<cudaStream_t>(stream)));
 }

@@ -105,6 +105,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -587,21 +589,27 @@ cudaError_t launch_rows_stages(const void* blocks, const void* raw_lens, const v
 
 }  // namespace
 
+cudaError_t dct::launch_huffman_encode(const void* blocks, const void* raw_lens,
+                                       const void* dense, void* rows, void* digits,
+                                       void* block_bytes, int B, int S, int C, int64_t row_cap,
+                                       int arity, cudaStream_t stream, bool* launched) {
+  if (B <= 0) return cudaGetLastError();
+  switch (arity) {
+    case 2: launch_encode<2>(blocks, raw_lens, dense, rows, digits, block_bytes, B, S, C, row_cap, stream); break;
+    case 3: launch_encode<3>(blocks, raw_lens, dense, rows, digits, block_bytes, B, S, C, row_cap, stream); break;
+    case 16: launch_encode<16>(blocks, raw_lens, dense, rows, digits, block_bytes, B, S, C, row_cap, stream); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return dct::launched_if(cudaGetLastError(), launched);
+}
+
 extern "C" int dct_huffman_encode(const void* blocks, const void* raw_lens,
                                   const void* dense, void* rows, void* digits,
                                   void* block_bytes, int B, int S, int C,
                                   long long row_cap, int arity, void* stream) {
-  if (B > 0) {
-    const auto s = static_cast<cudaStream_t>(stream);
-    const auto cap = static_cast<int64_t>(row_cap);
-    switch (arity) {
-      case 2: launch_encode<2>(blocks, raw_lens, dense, rows, digits, block_bytes, B, S, C, cap, s); break;
-      case 3: launch_encode<3>(blocks, raw_lens, dense, rows, digits, block_bytes, B, S, C, cap, s); break;
-      case 16: launch_encode<16>(blocks, raw_lens, dense, rows, digits, block_bytes, B, S, C, cap, s); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(dct::launch_huffman_encode(blocks, raw_lens, dense, rows, digits,
+                                                     block_bytes, B, S, C, row_cap, arity,
+                                                     static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int dct_huffman_encode_rows(const void* blocks, const void* raw_lens,

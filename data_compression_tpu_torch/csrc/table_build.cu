@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kS = 256;           // alphabet
@@ -347,12 +349,21 @@ table_build_kernel(const int64_t* __restrict__ hists, int32_t* __restrict__ leng
 
 // dense_mode 0: lengths only; 1: [B, 256] l << shift | fields; 2: [B, 512]
 // fields then field bits.
+cudaError_t dct::launch_table_build(const void* hists, void* lengths, void* dense, int B,
+                                    int arity, int cap, int dense_mode, int shift,
+                                    int bits_per_digit, cudaStream_t stream,
+                                    bool* launched) {
+  if (B <= 0) return cudaGetLastError();
+  table_build_kernel<<<static_cast<unsigned>(B), kThreads, 0, stream>>>(
+      static_cast<const int64_t*>(hists), static_cast<int32_t*>(lengths),
+      static_cast<int32_t*>(dense), arity, cap, dense_mode, shift, bits_per_digit);
+  return dct::launched_if(cudaGetLastError(), launched);
+}
+
 extern "C" int dct_table_build(const void* hists, void* lengths, void* dense, int B, int arity,
                                int cap, int dense_mode, int shift, int bits_per_digit,
                                void* stream) {
-  if (B <= 0) return static_cast<int>(cudaGetLastError());
-  table_build_kernel<<<static_cast<unsigned>(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(hists), static_cast<int32_t*>(lengths),
-      static_cast<int32_t*>(dense), arity, cap, dense_mode, shift, bits_per_digit);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(dct::launch_table_build(hists, lengths, dense, B, arity, cap,
+                                                  dense_mode, shift, bits_per_digit,
+                                                  static_cast<cudaStream_t>(stream)));
 }

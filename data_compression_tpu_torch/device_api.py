@@ -3,15 +3,17 @@ go to compressed payloads with no host read in between.
 
 Counterpart of ``data_compression_tpu/device_api.py``.  ``api.compress``
 serves bytes on the host; this module serves a producer whose data
-already lives on the card.  ``compress_blocks_device`` runs four
-kernels on the current stream: the per-block histogram
+already lives on the card.  ``compress_blocks_device`` runs five kernels
+on the current stream: the per-block histogram
 (``ops/kernels/histogram.py``) -> code lengths and the encode table in
 one launch (``ops/kernels/table_build.py`` ``build_tables``) -> the
-compact encode kernel -> the compaction kernel, with no torch op between
-them but the payload total and the digit counts' wire bytes, and
-returns a handle whose tensors stay on the device.  Only
-``DeviceCompressed.download`` reads back: the payload total, and so
-whether the output fitted its capacity.
+compact encode kernel -> a finishing kernel (the chunks' wire bytes, the
+block offsets and payload total, the uint8 length rows) -> the
+compaction kernel, and returns a handle whose tensors stay on the
+device.  On the card one native call (``csrc/compress_chain.cu``)
+enqueues them all into outputs allocated here; on the CPU each stage
+takes its plain version.  Only ``DeviceCompressed.download`` reads back:
+the payload total, and so whether the output fitted its capacity.
 ``decode_blocks_device`` builds the decode tables from the wire length
 rows (``ops/kernels/table_build.py`` ``decode_tables``, one launch) and
 runs the decode kernel, with no host read either: as the JAX function,
@@ -29,6 +31,7 @@ kernel's own inputs (``ops/kernels/decode.py``).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
@@ -36,15 +39,29 @@ import numpy as np
 import torch
 
 from data_compression_tpu_torch import api
-from data_compression_tpu_torch.config import CodecConfig, wire_bytes
+from data_compression_tpu_torch.config import (
+    ARITY_DIGITS_PER_BYTE,
+    ARITY_MAX_LEN,
+    CodecConfig,
+    wire_bytes,
+)
 from data_compression_tpu_torch.models.base import EncodeResult
 from data_compression_tpu_torch.models.huffman import HuffmanCodec
+from data_compression_tpu_torch.ops.kernels import _build
 from data_compression_tpu_torch.ops.kernels import compact as kcompact
 from data_compression_tpu_torch.ops.kernels import decode as kdecode
 from data_compression_tpu_torch.ops.kernels import encode as kencode
-from data_compression_tpu_torch.ops.kernels.histogram import block_histograms
-from data_compression_tpu_torch.ops.kernels.table_build import build_tables, decode_tables
+from data_compression_tpu_torch.ops.kernels.histogram import block_histograms, slices_for
+from data_compression_tpu_torch.ops.kernels.table_build import (
+    build_tables,
+    decode_tables,
+    table_params,
+)
 from data_compression_tpu_torch.utils import tracing
+
+# The chain's clock at the end of its four kernel stages, then the mask of
+# the kernels it launched.
+_Stamps = ctypes.c_longlong * 5
 
 
 @dataclasses.dataclass
@@ -93,12 +110,10 @@ def _lens_on(raw_lens, device, B: int) -> torch.Tensor:
 
 
 def _compact_into(rows, block_bytes, cap: int) -> torch.Tensor:
-    """[cap] uint8: the first ``cap`` payload bytes, zeros past the
-    payload's end.  The kernel is handed ``cap`` as its output size and
-    reads nothing back; the plain compaction (CPU) takes only the exact
-    size, so its output is cut or padded to ``cap`` here."""
-    if rows.device.type != "cpu":
-        return kcompact.compact_blocks(rows, block_bytes, total=cap if rows.shape[0] else 0)
+    """[cap] uint8 on the CPU: the first ``cap`` payload bytes, zeros past
+    the payload's end (on the card the compaction kernel, handed ``cap``
+    as its output size, writes them itself); the plain compaction takes
+    only the exact size, so its output is cut or padded to ``cap`` here."""
     exact = kcompact.compact_blocks(rows, block_bytes)
     flat = torch.zeros(cap, dtype=torch.uint8)
     n = min(cap, exact.numel())
@@ -118,10 +133,17 @@ def compress_blocks_device(
     ``raw_lens`` an int32 tensor on the device, nothing is read back:
     the compaction writes the first ``out_cap`` payload bytes (default
     B * S) into ``flat`` and zeros past the payload's end, and
-    ``download`` compacts again if the payload was longer."""
+    ``download`` compacts again if the payload was longer.  On the card
+    one native call enqueues every kernel (``chained`` counts such calls,
+    ``finish_launches`` the finishing kernel's launches; the other four
+    kernels count on their wrappers' ``launches``)."""
     with tracing.call("device_api.compress") as rec:
         out = _compress(rec, blocks, raw_lens, config, out_cap, device)
     return out
+
+
+compress_blocks_device.chained = 0  # calls that took the native chain
+compress_blocks_device.finish_launches = 0  # launches of its compress_finish_kernel
 
 
 def _compress(rec, blocks, raw_lens, config, out_cap, device) -> DeviceCompressed:
@@ -143,6 +165,8 @@ def _compress(rec, blocks, raw_lens, config, out_cap, device) -> DeviceCompresse
     cap = B * S if out_cap is None else out_cap
     if cap < 0:
         raise ValueError(f"out_cap must be >= 0, got {cap}")
+    if device.type == "cuda":
+        return _chain(rec, blocks, lens, arity, C, cap)
     rec.next_stage()
     hist = block_histograms(blocks, lens)
     rec.next_stage()
@@ -158,6 +182,46 @@ def _compress(rec, blocks, raw_lens, config, out_cap, device) -> DeviceCompresse
         total=block_bytes.sum(dtype=torch.int64), table_rows=lengths.to(torch.uint8),
         raw_lens=lens, arity=arity, chunk_syms=C, rows=rows, block_bytes=block_bytes,
     )
+
+
+def _chain(rec, blocks, lens, arity, C, cap) -> DeviceCompressed:
+    """The card's stages: the outputs and one scratch allocation for the
+    temporaries (laid out by ``csrc/compress_chain.cu``), then one native
+    call that enqueues the five kernels, stamps the ends of the kernel
+    stages on the recorder's clock and says which kernels it launched."""
+    mode, shift, bpd = table_params(arity)  # KeyError without kernels, as build_tables
+    B, S, C, ncb = kencode.check_geometry(blocks, lens, C, arity)
+    kencode.require_kernel_inputs(blocks, lens)
+    row_cap = kencode.row_capacity(S, C, arity)
+    dev = blocks.device
+    lib = _build.lib()
+    scratch = torch.empty(lib.dct_compress_scratch_bytes(B, ncb, mode), dtype=torch.uint8,
+                          device=dev)
+    flat = torch.empty(cap, dtype=torch.uint8, device=dev)
+    rows = torch.empty((B, row_cap), dtype=torch.uint8, device=dev)
+    block_bytes = torch.empty(B, dtype=torch.int32, device=dev)
+    nb = torch.empty((B, ncb), dtype=torch.int32, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    table_rows = torch.empty((B, 256), dtype=torch.uint8, device=dev)
+    stamps = _Stamps()
+    rec.next_stage()
+    rc = lib.dct_compress_chain(
+        blocks.data_ptr(), lens.data_ptr(), B, S, C, slices_for(B, S, _build.sm_count(dev)),
+        scratch.data_ptr(), arity, ARITY_MAX_LEN[arity], mode, shift, bpd, rows.data_ptr(),
+        row_cap, block_bytes.data_ptr(), nb.data_ptr(), ARITY_DIGITS_PER_BYTE[arity],
+        total.data_ptr(), table_rows.data_ptr(), flat.data_ptr(), cap, dev.index, rec.clock_id,
+        stamps, _build.stream_of(blocks))
+    _build.check(rc, "compress_chain")
+    rec.stamped(stamps[:4])
+    launched = stamps[4]  # bit k: the chain's k-th kernel was launched
+    block_histograms.launches += launched & 1
+    build_tables.launches += launched >> 1 & 1
+    kencode.encode_blocks.launches += launched >> 2 & 1
+    compress_blocks_device.finish_launches += launched >> 3 & 1
+    kcompact._counted.launches += launched >> 4 & 1
+    compress_blocks_device.chained += 1
+    return DeviceCompressed(flat=flat, nb=nb, total=total, table_rows=table_rows, raw_lens=lens,
+                            arity=arity, chunk_syms=C, rows=rows, block_bytes=block_bytes)
 
 
 def to_frame(dc: DeviceCompressed, blocks, config: Optional[CodecConfig] = None) -> bytes:

@@ -35,7 +35,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("huffman_encode.cu", "compact.cu", "huffman_decode.cu", "copy.cu", "microbench.cu",
            "table_build.cu", "histogram.cu", "decode_tables.cu", "nybble_lanes.cu",
-           "small_lanes.cu")
+           "small_lanes.cu", "compress_chain.cu")
+HEADERS = ("launch.cuh",)  # included by sources; hashed with them
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -44,6 +45,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_longlong
+_I64P = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     # name: argtypes (every entry point returns a cudaError_t as int)
     "dct_huffman_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _I, _P],
@@ -62,6 +64,8 @@ SIGNATURES = {
     "dct_small_decode": [_I, _P, _I64, _P, _P, _P, _P, _I64, _P, _I, _P],
     "dct_nybble_occupancy": [_I, _P, _P, _P, _P],
     "dct_small_occupancy": [_I, _I, _I64, _P, _P, _P, _P],
+    "dct_compress_chain": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I64, _P, _P, _I,
+                           _P, _P, _P, _I64, _I, _I, _I64P, _P],
 }
 
 _lock = threading.Lock()
@@ -82,7 +86,7 @@ def _nvcc() -> str:
 def _library_path() -> Path:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libdct_kernels-{h.hexdigest()[:16]}.so"
@@ -139,6 +143,8 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         loaded.dct_error_string.argtypes = [ctypes.c_int]
         loaded.dct_error_string.restype = ctypes.c_char_p
+        loaded.dct_compress_scratch_bytes.argtypes = [_I, _I, _I]
+        loaded.dct_compress_scratch_bytes.restype = _I64
         _lib = loaded
         return _lib
 
@@ -187,8 +193,21 @@ def check(rc: int, kernel: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """PyTorch's current stream on the tensor's device, as an integer."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on the (CUDA) tensor's device, as an
+    integer, with no Python stream object made."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+_sm_counts = {}  # device index -> SMs, read once a process
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device, read once."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    count = _sm_counts.get(index)
+    if count is None:
+        count = _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return count
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:

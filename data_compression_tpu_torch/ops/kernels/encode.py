@@ -54,7 +54,8 @@ _LEN_MASK = {2: 0xF, 16: 0x7}
 _DENSE_WIDTH = {2: 256, 3: 512, 16: 256}
 
 
-def _check(blocks, raw_lens, dense, chunk_syms, arity):
+def check_geometry(blocks, raw_lens, chunk_syms, arity):
+    """The encode's checks of everything but the table: -> (B, S, C, S/C)."""
     if arity not in _DENSE_WIDTH:
         raise ValueError(f"no encode kernel for arity {arity}")
     if blocks.dtype != torch.uint8 or blocks.dim() != 2:
@@ -65,10 +66,24 @@ def _check(blocks, raw_lens, dense, chunk_syms, arity):
         raise ValueError(f"chunk_syms {C} must be a power of two >= 16 dividing {S}")
     if raw_lens.dtype != torch.int32 or tuple(raw_lens.shape) != (B,):
         raise ValueError(f"raw_lens must be [{B}] int32")
+    return B, S, C, S // C
+
+
+def _check(blocks, raw_lens, dense, chunk_syms, arity):
+    B, S, C, ncb = check_geometry(blocks, raw_lens, chunk_syms, arity)
     w = _DENSE_WIDTH[arity]
     if dense.dtype != torch.int32 or tuple(dense.shape) != (B, w):
         raise ValueError(f"dense must be [{B}, {w}] int32 at arity {arity}")
-    return B, S, C, S // C
+    return B, S, C, ncb
+
+
+def row_capacity(S, C, arity):
+    """Bytes of a block's row in ``encode_blocks``' output: S/C chunks of
+    ``max_chunk_bytes``; ValueError past the kernel's int32 offsets."""
+    row_cap = S // C * max_chunk_bytes(C, arity)
+    if row_cap >= 2**31:
+        raise ValueError(f"block of {S} symbols too large for the encode kernel")
+    return row_cap
 
 
 def _symbol_codes(blocks, raw_lens, dense, C, arity):
@@ -160,8 +175,10 @@ def encode_chunk_rows_ref(blocks, raw_lens, dense, chunk_syms, arity=2, stages=3
     return rows, digits.to(torch.int32)
 
 
-def _require_kernel_inputs(blocks, raw_lens, dense):
-    _build.require_cuda(blocks, raw_lens, dense)
+def require_kernel_inputs(blocks, *tensors):
+    """The encode kernels' inputs on one CUDA device, contiguous, the
+    blocks 16-byte aligned."""
+    _build.require_cuda(blocks, *tensors)
     if blocks.data_ptr() % 16:
         raise ValueError("blocks must be 16-byte aligned")
 
@@ -172,10 +189,8 @@ def encode_blocks(blocks, raw_lens, dense, chunk_syms, arity=2):
     if blocks.device.type == "cpu":
         return encode_blocks_ref(blocks, raw_lens, dense, chunk_syms, arity)
     B, S, C, ncb = _check(blocks, raw_lens, dense, chunk_syms, arity)
-    _require_kernel_inputs(blocks, raw_lens, dense)
-    row_cap = ncb * max_chunk_bytes(C, arity)
-    if row_cap >= 2**31:
-        raise ValueError(f"block of {S} symbols too large for the encode kernel")
+    require_kernel_inputs(blocks, raw_lens, dense)
+    row_cap = row_capacity(S, C, arity)
     dev = blocks.device
     rows = torch.empty((B, row_cap), dtype=torch.uint8, device=dev)
     digits = torch.empty((B, ncb), dtype=torch.int32, device=dev)
@@ -202,7 +217,7 @@ def encode_chunk_rows(blocks, raw_lens, dense, chunk_syms, arity=2, stages=3):
         return encode_chunk_rows_ref(blocks, raw_lens, dense, chunk_syms, arity, stages)
     B, S, C, ncb = _check(blocks, raw_lens, dense, chunk_syms, arity)
     _check_stages(stages)
-    _require_kernel_inputs(blocks, raw_lens, dense)
+    require_kernel_inputs(blocks, raw_lens, dense)
     mb = max_chunk_bytes(C, arity)
     dev = blocks.device
     rows = torch.empty((B * ncb, mb), dtype=torch.uint8, device=dev)

@@ -79,7 +79,7 @@ def block_histograms(blocks: torch.Tensor, lengths: torch.Tensor) -> torch.Tenso
     B, S = blocks.shape
     out = torch.empty((B, 256), dtype=torch.int64, device=blocks.device)
     if B:
-        sms = torch.cuda.get_device_properties(blocks.device).multi_processor_count
+        sms = _build.sm_count(blocks.device)
         with torch.cuda.device(blocks.device):
             rc = _build.lib().dct_histogram(blocks.data_ptr(), blocks.stride(0),
                                             lengths.data_ptr(), out.data_ptr(), B, S,

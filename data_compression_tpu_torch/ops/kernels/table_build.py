@@ -135,6 +135,16 @@ def huffman_lengths_ref(hists, arity):
         lengths = torch.where(over[:, None], _build_once_ref(f, arity), lengths)
 
 
+def table_params(arity):
+    """The kernel's encode-table arguments at ``arity``: (dense_mode: 1 for
+    [B, 256] packed entries, 2 for [B, 512] codes and field bits; the
+    length's shift; bits a digit).  KeyError for an arity without
+    kernels."""
+    _kernel_arity(arity)
+    return (1 if arity in PACKED_LEN_SHIFT else 2, PACKED_LEN_SHIFT.get(arity, 0),
+            BITS_PER_DIGIT[arity])
+
+
 def _launch(hists, arity, with_table):
     """One kernel launch: -> (lengths, dense or None)."""
     B, cap = _check(hists, arity)
@@ -144,9 +154,7 @@ def _launch(hists, arity, with_table):
     lengths = torch.empty((B, S), dtype=torch.int32, device=dev)
     dense, mode, shift, bpd = None, 0, 0, 0
     if with_table:
-        bpd = BITS_PER_DIGIT[arity]
-        shift = PACKED_LEN_SHIFT.get(arity, 0)
-        mode = 1 if arity in PACKED_LEN_SHIFT else 2
+        mode, shift, bpd = table_params(arity)
         dense = torch.empty((B, S * mode), dtype=torch.int32, device=dev)
     if B:
         with torch.cuda.device(dev):

@@ -7,7 +7,9 @@ between their stages (``STAGES[entry]``, in order).  A call that returns
 writes one record into a preallocated ring of the newest ``CAPACITY`` calls
 of both entry points; a call that raises writes none.  The recorder is
 always on: a call pays for its stamps (``time.perf_counter_ns``) and one
-record write of 72 bytes, no more.  The record in progress belongs to the
+record write of 72 bytes, no more.  Native code may stamp stage ends
+itself, on the call's clock (``clock_id``), and hand them over
+(``stamped``): the compress chain on the card does so after each launch.  The record in progress belongs to the
 call, so calls on several threads do not mix stamps.  ``recent(entry, n)``
 reads the ring.
 
@@ -67,6 +69,7 @@ class _Call(list):
 
     __slots__ = ()
     pack = code = None
+    clock_id = time.CLOCK_MONOTONIC  # perf_counter_ns's clock on Linux
 
     def __enter__(self):
         return self
@@ -74,6 +77,11 @@ class _Call(list):
     def next_stage(self) -> None:
         """End the current stage and start the next."""
         self.append(_clock())
+
+    def stamped(self, ends) -> None:
+        """End the current stage and as many after it at ``ends``, clock
+        readings (ns, in order) taken outside Python on ``clock_id``."""
+        self.extend(ends)
 
     def __exit__(self, kind, value, tb):
         if kind is None:
@@ -87,6 +95,7 @@ class _ProfiledCall(_Call):
     profiled ring."""
 
     __slots__ = ()
+    clock_id = time.CLOCK_REALTIME  # time_ns's clock
 
     def next_stage(self) -> None:
         self.append(_profiler_clock())

@@ -491,6 +491,91 @@ def test_compact_kernel_tiny_and_empty_blocks(cuda, B):
         _guarded_launch(rows, zero, 3)
 
 
+@pytest.mark.parametrize("tail", [0, 1, 15, 16, 17, 2 * 16384 + 5])
+def test_compact_kernel_zeros_past_the_payload(cuda, tail):
+    """An output ``tail`` bytes longer than the payload (the device
+    pipeline hands the kernel its whole capacity), at every destination
+    alignment: the payload as the exact-total compaction writes it, every
+    byte past it 0, nothing outside the output touched."""
+    rng = np.random.default_rng(tail)
+    B, N = 64, 1000
+    bb = rng.integers(0, N + 1, B)
+    bb[::7] = rng.integers(0, 16, len(bb[::7]))
+    rows, bbt = _compact_rows(B, N, 5, bb.tolist(), tail, cuda)
+    want = kcmp.compact_blocks(rows, bbt)
+    payload = want.numel()
+    total = payload + tail
+    for dst_off in range(16):
+        canvas = torch.full((total + 64,), 0xA5, dtype=torch.uint8, device=cuda)
+        start = 16 + dst_off
+        out = canvas[start : start + total]
+        kcmp.compact_launcher(rows, bbt, total=total)(out)
+        assert torch.equal(out[:payload], want), dst_off
+        assert not bool(out[payload:].any()), dst_off
+        assert bool((canvas[:start] == 0xA5).all()) and bool((canvas[start + total:] == 0xA5).all())
+
+
+def _chain_inputs(B, S, n, seed, dev):
+    """[B, S] blocks on ``dev``: windows of one text, all zeros, one
+    16-byte record repeated and random bytes in turn, at n = 2 a block
+    whose code reaches the 15-digit cap; lengths S, 0, 1, S - 1 and
+    random in turn."""
+    rng = np.random.default_rng(seed)
+    text = np.frombuffer(enwik_like(S * 8, seed), np.uint8)
+    kinds = [lambda i: text[(i * 997) % (7 * S):][:S], lambda i: np.zeros(S, np.uint8),
+             lambda i: np.tile(rng.integers(0, 256, 16, dtype=np.uint8), S // 16),
+             lambda i: rng.integers(0, 256, S, dtype=np.uint8)]
+    blocks = np.zeros((B, S), np.uint8)
+    for i in range(B):
+        blocks[i] = kinds[i % 4](i)
+    if n == 2 and B > 5:
+        blocks[5] = np.frombuffer(deep_code_block(S, seed), np.uint8)
+    picks = [S, 0, 1, S - 1]
+    lens = np.array([picks[i % 5] if i % 5 < 4 else int(rng.integers(0, S + 1))
+                     for i in range(B)], np.int32)
+    return torch.from_numpy(blocks).to(dev), torch.from_numpy(lens).to(dev)
+
+
+@pytest.mark.parametrize("out_cap", [None, 0, 1000, "payload"])
+@pytest.mark.parametrize("B", [0, 1, 7, 1023, 1024])
+@pytest.mark.parametrize("n", ARITIES)
+def test_compress_chain_matches_the_kernel_wrappers(cuda, n, B, out_cap):
+    """The native chain of ``compress_blocks_device`` against the four
+    kernel wrappers and the torch ops they were joined by, bit for bit:
+    ``flat`` (the first ``out_cap`` payload bytes, zeros past the payload),
+    ``nb``, ``total``, ``table_rows``, ``raw_lens``, ``block_bytes`` and
+    each row's valid bytes."""
+    S, C = 4096, 128
+    cfg = pt.CodecConfig(arity=n, block_size=S, chunk_syms=C)
+    blocks, lens = _chain_inputs(B, S, n, 10 * B + n, cuda)
+    hist = block_histograms(blocks, lens)
+    lengths, dense = ktb.build_tables(hist, n)
+    rows, digits, bb = kenc.encode_blocks(blocks, lens, dense, C, n)
+    payload = kcmp.compact_blocks(rows, bb)
+    cap = {None: B * S, "payload": payload.numel()}.get(out_cap, out_cap)
+    flat = torch.zeros(cap, dtype=torch.uint8, device=cuda)
+    flat[: min(cap, payload.numel())] = payload[:cap]
+    counters = (block_histograms, ktb.build_tables, kenc.encode_blocks, kcmp.compact_blocks)
+    before = [w.launches for w in counters]
+    fn = device_api.compress_blocks_device
+    chained, finished = fn.chained, fn.finish_launches
+    dc = fn(blocks, lens, cfg, out_cap=None if out_cap is None else cap)
+    assert fn.chained == chained + 1 and fn.finish_launches == finished + 1
+    # a kernel with no work is not launched: the first three with no blocks,
+    # the compaction with no capacity
+    assert [w.launches - b for w, b in zip(counters, before)] == [int(B > 0)] * 3 + [int(cap > 0)]
+    assert torch.equal(dc.flat, flat)
+    assert torch.equal(dc.nb, wire_bytes(digits, n))
+    assert dc.total.dtype == torch.int64 and dc.total.shape == ()
+    assert int(dc.total) == payload.numel() == int(bb.sum())
+    assert torch.equal(dc.table_rows, lengths.to(torch.uint8))
+    assert torch.equal(dc.raw_lens, lens) and torch.equal(dc.block_bytes, bb)
+    assert dc.rows.shape == rows.shape
+    valid = torch.arange(rows.shape[1], device=cuda)[None, :] < bb[:, None]
+    assert torch.equal(dc.rows[valid], rows[valid])
+    assert np.array_equal(dc.download()[0], payload.cpu().numpy())
+
+
 @pytest.mark.parametrize("n", ARITIES)
 def test_compact_on_the_compress_path_makes_no_host_read(cuda, n, monkeypatch):
     """The compress path's call of the compaction (the total given) runs
@@ -802,7 +887,8 @@ def test_build_tables_kernel_matches_plain_and_native(cuda, n):
 
 
 @pytest.mark.parametrize("source", ["histogram.cu", "table_build.cu", "decode_tables.cu",
-                                    "microbench.cu", "nybble_lanes.cu", "small_lanes.cu"])
+                                    "microbench.cu", "nybble_lanes.cu", "small_lanes.cu",
+                                    "compress_chain.cu"])
 def test_kernels_use_no_stack_and_no_spill(cuda, source):
     usage = _build.ptxas_usage(source)
     assert usage
@@ -877,7 +963,8 @@ def test_histograms_make_no_host_read(cuda):
 def test_device_pipeline_makes_no_host_read(cuda, n):
     """``compress_blocks_device`` under ``set_sync_debug_mode("error")``;
     its frame is ``compress``'s and ``decode_blocks_device`` gives the
-    input back; each of its four kernels launched once."""
+    input back; each of its five kernels launched once, by one native
+    call (``chained``)."""
     data = _data()
     cfg = pt.CodecConfig(arity=n)
     blocks, lengths = framing.split_blocks(data, cfg.block_size)
@@ -885,6 +972,8 @@ def test_device_pipeline_makes_no_host_read(cuda, n):
     dev_lens = torch.from_numpy(lengths.astype(np.int32)).to(cuda)
     wrappers = (block_histograms, ktb.build_tables, kenc.encode_blocks, kcmp.compact_blocks)
     before = [w.launches for w in wrappers]
+    chained = device_api.compress_blocks_device.chained
+    finished = device_api.compress_blocks_device.finish_launches
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -892,6 +981,8 @@ def test_device_pipeline_makes_no_host_read(cuda, n):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1, 1]
+    assert device_api.compress_blocks_device.chained == chained + 1
+    assert device_api.compress_blocks_device.finish_launches == finished + 1
     assert device_api.to_frame(dc, dev_blocks, cfg) == pt.compress(data, cfg, device=cuda)
     out = device_api.decode_blocks_device(*device_api.chunk_inputs(dc), dc.table_rows, n,
                                           cfg.chunk_syms)

@@ -143,12 +143,15 @@ def _blocks(data, block_size=S):
 def test_compress_blocks_device_wire_parity(arity):
     """The payload bytes and table rows of the JAX package's host
     encoder, as its own device-pipeline test checks them; and the frame
-    of ``compress`` in both packages."""
+    of ``compress`` in both packages.  The CPU takes the per-stage path,
+    never the card's native chain."""
     data = ascii_text(np.random.default_rng(arity), S + S // 2)
     blocks, lens = _blocks(data)
     cfg = pt.CodecConfig(arity=arity, block_size=S, chunk_syms=128)
-    dc = device_api.compress_blocks_device(torch.from_numpy(blocks), torch.from_numpy(lens),
-                                           cfg, device="cpu")
+    fn = device_api.compress_blocks_device
+    chained, finished = fn.chained, fn.finish_launches
+    dc = fn(torch.from_numpy(blocks), torch.from_numpy(lens), cfg, device="cpu")
+    assert (fn.chained, fn.finish_launches) == (chained, finished)
     flat, nb, rows, raw_lens = dc.download()
     jcfg = jx.CodecConfig(arity=arity, block_size=S, chunk_syms=128, use_device=False)
     hists = np.stack([np.bincount(blocks[i, : lens[i]], minlength=256)

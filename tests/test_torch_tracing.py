@@ -8,6 +8,8 @@ time around a call on the card.  Imports no JAX, so that the card can run
 it with ``--noconftest``."""
 
 import contextlib
+import ctypes
+import statistics
 import sys
 import threading
 import time
@@ -236,23 +238,87 @@ def test_profiled_calls_are_kept_apart_on_the_profilers_clock(entry):
     assert not tracing.recent(entry, 1)[0].profiled  # outside the session again
 
 
+class _Timespec(ctypes.Structure):
+    _fields_ = [("tv_sec", ctypes.c_long), ("tv_nsec", ctypes.c_long)]
+
+
+def _c_clock_ns(clock_id):
+    """``clock_id`` read by the C library's ``clock_gettime``, as the
+    compress chain on the card reads it, not by Python's ``time``."""
+    ts = _Timespec()
+    assert ctypes.CDLL(None).clock_gettime(clock_id, ctypes.byref(ts)) == 0
+    return ts.tv_sec * 1_000_000_000 + ts.tv_nsec
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_stage_ends_stamped_outside_python(profiled):
+    """The compress chain's way (``device_api._chain``): the checks ended
+    by ``next_stage``, the four kernel stages by clock readings taken in C
+    on the call's ``clock_id`` and handed over by ``stamped``, the last by
+    the call's end.  The record keeps them in ``STAGES`` order, each >= 0,
+    summing to the call's span inside the caller's interval on the
+    recorder's clock; a call in a profiler session lands in the profiled
+    ring, stamped on the trace's clock."""
+    last = _newest_id()
+    others = tracing.recent(COMPRESS, 1, not profiled)
+    clock = time.time_ns if profiled else time.perf_counter_ns
+    with _session(profiled):
+        t0 = clock()
+        with tracing.call(COMPRESS) as rec:
+            rec.next_stage()
+            ends = []
+            for _ in range(4):
+                sum(range(2000))  # a stage's work
+                ends.append(_c_clock_ns(rec.clock_id))
+            rec.stamped(ends)
+        t1 = clock()
+    record = tracing.recent(COMPRESS, 1, profiled)[0]
+    assert record.id == last + 1 and tracing.recent(COMPRESS, 1, not profiled) == others
+    _whole(record, COMPRESS, t0, t1, profiled)
+    stage_ends = np.cumsum((record.start_ns,) + record.stages)[1:].tolist()
+    assert stage_ends[1:5] == ends and all(st > 0 for st in record.stages[1:5])
+
+
+def _recorded_nothing():
+    """A compress record whose stages hold no work."""
+    with tracing.call(COMPRESS) as rec:
+        for _ in tracing.STAGES[COMPRESS][1:]:
+            rec.next_stage()
+
+
+def _gaps(fn, calls):
+    """Per call of ``fn``: the host time around it and its record's span
+    (ns); the device drained between calls."""
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter_ns()
+        res = fn()
+        t1 = time.perf_counter_ns()
+        del res  # its frees are the caller's, outside the call
+        r = tracing.recent(COMPRESS, 1)[0]
+        assert t0 <= r.start_ns and r.start_ns + sum(r.stages) <= t1
+        out.append((t1 - t0, sum(r.stages)))
+        torch.cuda.synchronize()
+    return out
+
+
 @pytest.mark.cuda
 def test_stage_sums_match_the_host_time_on_cuda():
+    """The stages of 50 calls on 64 blocks sum to the host time around
+    them within 3%, once the recorder's own entry and exit are taken off:
+    they lie outside every record by design (the record is written after
+    its last stamp), and are read here as the median gap of an empty
+    recorded call (2-6 us on the card's host, 3-4% of a 160-230 us call
+    of the native chain), which itself has to stay within 8 us."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
     fn = _compress(device="cuda", blocks=64, block_size=64 * 1024)
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    outside, inside = 0, 0
-    for _ in range(50):
-        t0 = time.perf_counter_ns()
-        out = fn()
-        t1 = time.perf_counter_ns()
-        del out  # its frees are the caller's, outside the call
-        r = tracing.recent(COMPRESS, 1)[0]
-        assert t0 <= r.start_ns and r.start_ns + sum(r.stages) <= t1
-        outside += t1 - t0
-        inside += sum(r.stages)
-        torch.cuda.synchronize()
-    assert abs(inside - outside) <= 0.03 * outside
+    own = statistics.median(o - i for o, i in _gaps(lambda: _recorded_nothing(), 50))
+    assert own <= 8_000, f"the recorder's own entry and exit take {own} ns a call"
+    calls = _gaps(fn, 50)
+    outside = sum(o for o, _ in calls)
+    inside = sum(i for _, i in calls)
+    assert abs(inside - (outside - len(calls) * own)) <= 0.03 * outside
